@@ -1,0 +1,16 @@
+"""Qubit state-vector engine of the port (counterpart of
+``quantum_computations_tpu/dv``): gates and named states, window fusion,
+and the large-N split-real :class:`FastStatevector` in slab mode."""
+
+from . import fusion, qop
+from .states import State
+from .gates import (
+    Gate, I, X, Y, Z, H, RZ, P, Pdg, T, Tdg, CX, CZ, SWAP, Insert, M, MZ, MX,
+)
+from .fast_sv import FastStatevector
+
+__all__ = [
+    "fusion", "qop", "State", "Gate", "I", "X", "Y", "Z", "H", "RZ", "P",
+    "Pdg", "T", "Tdg", "CX", "CZ", "SWAP", "Insert", "M", "MZ", "MX",
+    "FastStatevector",
+]

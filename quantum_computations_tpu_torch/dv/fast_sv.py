@@ -1,0 +1,667 @@
+"""Large-N split-real state-vector engine (counterpart of
+``quantum_computations_tpu/dv/fast_sv.py``), slab mode.
+
+The state is two float32 planes (re, im) of length 2^N on one device. At
+N = 30 each plane is 4 GiB, and the window update runs in place.
+
+Gate scheduling (``fusion_mode``):
+
+- ``"slab"`` (default) — gates fuse into <=7-qubit *window* unitaries
+  (:mod:`.fusion`) and apply on the minor 2^S-wide slab as one
+  ``(R, 2^S) @ (2^S, 2^S)`` split-real product, through the Hopper kernel
+  :func:`..ops.slab_kernels.slab_matmul` on CUDA (in place) and its plain
+  version on the CPU. The logical->physical axis layout is lazy: a window
+  whose qubits live outside the slab pays grouped transpose passes to move
+  them in, and they stay. ``re``/``im`` are in PHYSICAL axis order when the
+  layout is permuted; use ``probs()``/``sample()``/``norm_sq()``, which
+  read through the layout.
+- ``"window"`` — the same fused windows applied in logical order by the
+  grouped einsum of :func:`.fusion.apply_window_split` (plain PyTorch).
+- ``"chain"`` — the per-gate chain kernels; not ported yet.
+
+Each layout pass is one or more ``reshape -> permute -> contiguous``
+copies, run on one plane and then the other, each copy replacing the plane
+it read, so at most three planes are live at a time.
+"""
+
+from __future__ import annotations
+
+import math
+import os
+
+import numpy as np
+import torch
+
+from . import fusion
+from ..config import REAL_DTYPE, resolve_device
+from ..ops import slab_kernels
+
+__all__ = ["FastStatevector", "order_windows", "plan_slab_residency"]
+
+
+def _move_axes_to_end_plan(N: int, axes: tuple[int, ...]):
+    """(view_shape, permutation) sending physical axes ``axes`` (sorted)
+    to the trailing positions, keeping the order of the others, on the
+    interleaved-segment grouped view (rank <= 2k+1)."""
+    shape, taxes = fusion._grouped_view(N, axes)
+    others = [i for i in range(len(shape)) if i not in taxes]
+    return tuple(shape), tuple(others) + tuple(taxes)
+
+
+def _permute_copy(x: torch.Tensor, shape: tuple, perm: tuple) -> torch.Tensor:
+    """One layout copy of a flat plane: view as ``shape``, permute, flatten."""
+    return x.reshape(shape).permute(perm).contiguous().reshape(-1)
+
+
+def _block_swap_plan(num_qubits: int, slab_bits: int):
+    """Swap the slab (last S axes) with block B (the S axes above it)."""
+    S = slab_bits
+    A = 1 << (num_qubits - 2 * S)
+    d = 1 << S
+    return [((A, d, d), (0, 2, 1))]
+
+
+def _move_axes_raw(x: torch.Tensor, axes: tuple, num_qubits: int):
+    """Direct grouped move of physical ``axes`` to the end (one pass)."""
+    return _permute_copy(x, *_move_axes_to_end_plan(num_qubits, axes))
+
+
+def _block_swap_raw(x: torch.Tensor, num_qubits: int, slab_bits: int):
+    return _permute_copy(x, *_block_swap_plan(num_qubits, slab_bits)[0])
+
+
+# Above this plane size (bytes of one f32 plane) an upper move runs as
+# per-run middle swaps (the JAX engine's choice, kept so both engines take
+# the same passes). QCT_SV_MOVE_DECOMP=1/0 forces the choice.
+_MOVE_DECOMP_BYTES = 2 << 30
+
+
+def _move_decomposition(axes: tuple, num_qubits: int, slab_bits: int,
+                        to_front: bool) -> list[tuple[int, int, int, int]]:
+    """Decompose an upper move into single middle-swap passes.
+
+    Returns [(p, x, y, q), ...]: each pass is
+    ``v.reshape(p, x, y, q).swapaxes(1, 2)`` — a 4-axis transpose whose
+    minor dim is untouched (>= the 2^S slab). One pass per contiguous run
+    of target axes:
+
+    - to_back (``to_front=False``): runs processed right-to-left, each run G
+      swaps past everything right of it (B) and merges into the minor block
+      Q (initially the slab); final upper order = others + targets(sorted),
+      exactly :func:`_upper_move_raw`'s permutation.
+    - to_front: runs processed left-to-right, each run G swaps past the
+      non-target block A to its left and merges into the leading block P;
+      final order = targets(sorted) + others.
+    """
+    Nu = num_qubits - slab_bits
+    shape, taxes = fusion._grouped_view(Nu, axes)
+    sizes = list(shape)
+    is_tgt = [i in taxes for i in range(len(sizes))]
+    # contiguous runs of target axes in the grouped view
+    runs: list[tuple[int, int]] = []  # [start, end) index ranges
+    i = 0
+    while i < len(sizes):
+        if is_tgt[i]:
+            j = i
+            while j < len(sizes) and is_tgt[j]:
+                j += 1
+            runs.append((i, j))
+            i = j
+        else:
+            i += 1
+    passes: list[tuple[int, int, int, int]] = []
+    if not to_front:
+        Q = 1 << slab_bits
+        rem = list(sizes)
+        rem_tgt = list(is_tgt)
+        for (i0, j0) in reversed(runs):
+            G = math.prod(rem[i0:j0])
+            B = math.prod(rem[j0:])
+            P = math.prod(rem[:i0])
+            if B > 1:
+                passes.append((P, G, B, Q))
+            Q *= G
+            del rem[i0:j0], rem_tgt[i0:j0]
+    else:
+        # left-to-right: each run G hops over the (contiguous, growing)
+        # non-target block A to land right after the already-moved runs F
+        F = 1  # product of runs already moved to the front
+        A = 1  # product of non-target sizes swept past so far
+        idx = 0
+        for (i0, j0) in runs:
+            A *= math.prod(sizes[idx:i0])
+            G = math.prod(sizes[i0:j0])
+            Q = math.prod(sizes[j0:]) * (1 << slab_bits)
+            if A > 1:
+                passes.append((F, A, G, Q))
+            F *= G
+            idx = j0
+    return passes
+
+
+def _upper_move_plan(axes: tuple, num_qubits: int, slab_bits: int,
+                     to_front: bool):
+    """Copies relocating UPPER physical axes ``axes`` to the end (or front)
+    of the upper region, the slab untouched (a trailing 2^S-wide axis)."""
+    decomp = os.environ.get("QCT_SV_MOVE_DECOMP", "auto")
+    if decomp == "1" or (decomp != "0"
+                         and ((4 << num_qubits) >= _MOVE_DECOMP_BYTES)):
+        return [((p, xs, ys, q), (0, 2, 1, 3)) for (p, xs, ys, q)
+                in _move_decomposition(axes, num_qubits, slab_bits, to_front)]
+    Nu = num_qubits - slab_bits
+    shape, taxes = fusion._grouped_view(Nu, axes)
+    shape = shape + (1 << slab_bits,)
+    slab_ax = len(shape) - 1
+    others = tuple(i for i in range(slab_ax) if i not in taxes)
+    if to_front:
+        perm = tuple(taxes) + others + (slab_ax,)
+    else:
+        perm = others + tuple(taxes) + (slab_ax,)
+    return [(shape, perm)]
+
+
+def _upper_move_raw(x: torch.Tensor, axes: tuple, num_qubits: int,
+                    slab_bits: int, to_front: bool):
+    for shape, perm in _upper_move_plan(axes, num_qubits, slab_bits, to_front):
+        x = _permute_copy(x, shape, perm)
+    return x
+
+
+def _layout_copies(op: tuple, N: int, S: int):
+    """The permute copies of one ``plan_slab_residency`` op, per plane."""
+    if op[0] == "swap":
+        return _block_swap_plan(N, S)
+    if op[0] == "move":
+        return _upper_move_plan(op[1], N, S, op[2])
+    return [_move_axes_to_end_plan(N, op[1])]  # scatter
+
+
+def _swap_newpos(N: int, S: int):
+    """old→new physical-axis map of the slab <-> block-B swap."""
+    slab_start = N - S
+
+    def f(p):
+        if p >= slab_start:
+            return p - S
+        if p >= slab_start - S:
+            return p + S
+        return p
+
+    return f
+
+
+def _move_newpos(N: int, S: int, srcs: tuple[int, ...], to_front: bool):
+    """old→new physical-axis map of an upper-region move (slab untouched)."""
+    Nu = N - S
+    src_set = set(srcs)
+    others = [p for p in range(Nu) if p not in src_set]
+    newpos = {}
+    if to_front:
+        for r, p in enumerate(srcs):
+            newpos[p] = r
+        for r, p in enumerate(others):
+            newpos[p] = len(srcs) + r
+    else:
+        for r, p in enumerate(others):
+            newpos[p] = r
+        for r, p in enumerate(srcs):
+            newpos[p] = len(others) + r
+    return lambda p: newpos.get(p, p)
+
+
+def _scatter_newpos(N: int, move: tuple[int, ...]):
+    """old→new physical-axis map of the direct grouped move-to-end."""
+    moved = set(move)
+    untouched = [p for p in range(N) if p not in moved]
+    newpos = {p: r for r, p in enumerate(untouched)}
+    for r, p in enumerate(move):
+        newpos[p] = len(untouched) + r
+    return lambda p: newpos[p]
+
+
+def plan_slab_residency(N: int, S: int, scatter_move_max: int,
+                        phys: list[int], emit) -> list[int]:
+    """Emit the minor-safe pass sequence bringing physical axes ``phys``
+    into the minor slab (the last S axes of an N-axis register).
+
+    ``emit(op, newpos)`` executes or records ONE pass and must apply
+    ``newpos`` (old → new physical axis) to the caller's own layout
+    bookkeeping. Ops are ``("swap",)``, ``("move", srcs, to_front)`` and
+    ``("scatter", srcs)``. Returns the targets' final physical positions
+    (all >= N - S).
+
+    Large N uses only passes whose transpose output keeps a 2^S-wide minor
+    axis (the JAX engine's scheme, kept so both engines take the same
+    passes):
+
+    1. targets in BOTH the slab and the upper region: move the upper
+       targets to the front of the upper region (1 pass — front positions
+       are outside block B since N >= 3S + 1 there);
+    2. any slab-resident target: slab <-> B swap evicts them to B;
+    3. move all targets to the end of the upper region;
+    4. slab <-> B swap brings them in.
+    """
+    slab_start = N - S
+    phys = list(phys)
+    if all(p >= slab_start for p in phys):
+        return phys
+    if N < 3 * S + 1 or N <= scatter_move_max:
+        srcs = tuple(sorted(phys))
+        f = _scatter_newpos(N, srcs)
+        emit(("scatter", srcs), f)
+        return [f(p) for p in phys]
+    in_slab = [p for p in phys if p >= slab_start]
+    upper = tuple(sorted(p for p in phys if p < slab_start))
+    if in_slab and upper:
+        f = _move_newpos(N, S, upper, True)
+        emit(("move", upper, True), f)
+        phys = [f(p) for p in phys]
+    if in_slab:
+        f = _swap_newpos(N, S)
+        emit(("swap",), f)
+        phys = [f(p) for p in phys]
+    assert all(p < slab_start for p in phys)
+    srcs = tuple(sorted(phys))
+    f = _move_newpos(N, S, srcs, False)
+    emit(("move", srcs, False), f)
+    phys = [f(p) for p in phys]
+    f = _swap_newpos(N, S)
+    emit(("swap",), f)
+    return [f(p) for p in phys]
+
+
+def _residency_cost(N: int, S: int, scatter_move_max: int,
+                    layout: list[int], tgts: tuple[int, ...]):
+    """(pass_count, layout_after) of bringing logical ``tgts`` slab-resident
+    from ``layout`` — a pure simulation of :func:`plan_slab_residency` on a
+    shadow table (no planes touched)."""
+    lay = list(layout)
+    passes = 0
+
+    def emit(op, newpos):
+        nonlocal passes
+        passes += 1
+        lay[:] = [newpos(p) for p in lay]
+
+    plan_slab_residency(N, S, scatter_move_max, [lay[t] for t in tgts], emit)
+    return passes, lay
+
+
+# Window count above which greedy scheduling falls back to circuit order
+# (the O(n^2) host-side planning would dominate for very long unfused
+# chains; ~500 windows keeps planning well under a second).
+_PLAN_MAX_WINDOWS = 512
+
+
+def order_windows_by_cost(windows, state, cost_fn):
+    """Commutation-exact greedy scheduling of fused windows.
+
+    Windows on disjoint qubit supports commute exactly, so any topological
+    order of the overlap-dependency DAG is equivalent. Lazy layouts make the
+    order *performance-relevant*: a window whose targets are already
+    resident costs nothing, one that isn't pays layout passes. Greedy list
+    scheduling: among ready windows pick the one whose simulated residency
+    plan from the current shadow ``state`` has the lowest ``cost_fn(state,
+    targets) -> (cost, state_after)``, tie-broken by original circuit
+    position; then advance the shadow state.
+
+    Scheduling is O(n^2) in the window count (DAG edges + one residency
+    simulation per (step, ready window)); above ``_PLAN_MAX_WINDOWS`` the
+    planner falls back to circuit order.
+    """
+    n = len(windows)
+    if n <= 1 or n > _PLAN_MAX_WINDOWS:
+        return list(windows)
+    supports = [set(t) for _, t in windows]
+    preds_left = [0] * n
+    succs: list[list[int]] = [[] for _ in range(n)]
+    for i in range(n):
+        for j in range(i):
+            if supports[i] & supports[j]:
+                preds_left[i] += 1
+                succs[j].append(i)
+    ready = [i for i in range(n) if preds_left[i] == 0]
+    order: list[int] = []
+    while ready:
+        ready.sort()
+        best, best_cost, best_state = None, None, None
+        for i in ready:
+            cost, state_after = cost_fn(state, windows[i][1])
+            if best_cost is None or cost < best_cost:
+                best, best_cost, best_state = i, cost, state_after
+                if cost == 0:
+                    break  # can't beat a resident window
+        ready.remove(best)
+        order.append(best)
+        state = best_state
+        for s in succs[best]:
+            preds_left[s] -= 1
+            if preds_left[s] == 0:
+                ready.append(s)
+    return [windows[i] for i in order]
+
+
+def order_windows(windows, N: int, S: int, scatter_move_max: int,
+                  layout: list[int]):
+    """Single-device slab-engine planner: schedule windows to minimise
+    layout passes, then let the caller merge now-adjacent same-support
+    windows (:func:`.fusion.merge_adjacent_windows`)."""
+    return order_windows_by_cost(
+        windows, list(layout),
+        lambda lay, tgts: _residency_cost(N, S, scatter_move_max, lay, tgts))
+
+
+class FastStatevector:
+    """Unitary-circuit engine over split-real float32 planes.
+
+    Parameters
+    ----------
+    num_qubits:
+        State size; planes are float32 of shape (2**num_qubits,).
+    device:
+        ``"cuda"`` (default; raises without a CUDA device) or ``"cpu"``.
+        On CUDA every slab window goes through the Hopper kernel, on the
+        CPU through its plain version.
+    fusion_mode:
+        ``"slab"`` (default, or ``QCT_SV_FUSION``) or ``"window"``;
+        ``"chain"`` raises :class:`NotImplementedError`.
+    """
+
+    C_BITS = 11  # sample(): columns of the two-stage row/column draw
+
+    def __init__(self, num_qubits: int, *,
+                 device: str | torch.device | None = None,
+                 fusion_mode: str | None = None):
+        self.N = int(num_qubits)
+        if fusion_mode is None:
+            fusion_mode = os.environ.get("QCT_SV_FUSION", "slab")
+        if fusion_mode == "chain":
+            raise NotImplementedError(
+                "fusion_mode='chain' (the apply_1q_chain / apply_2q_adjacent "
+                "kernels) comes with the next slice of the port; use 'slab'")
+        if fusion_mode not in ("window", "slab"):
+            raise ValueError(f"unknown fusion_mode {fusion_mode!r}")
+        self.fusion_mode = fusion_mode
+        self.device = resolve_device(device)
+        self.c_bits = min(self.C_BITS, self.N - 1)
+        n = 1 << self.N
+        self.re = torch.zeros(n, dtype=REAL_DTYPE, device=self.device)
+        self.re[0] = 1.0
+        self.im = torch.zeros(n, dtype=REAL_DTYPE, device=self.device)
+        # slab mode: logical axis -> physical axis (lazy layout; axes move
+        # into the minor slab on demand and stay there)
+        self.axis_of = list(range(self.N))
+        self.slab_bits = min(fusion.MAX_WINDOW_BITS, self.N)
+        # N up to this uses the direct grouped move (1 pass); tests lower it
+        # (with a small slab_bits) to exercise the minor-safe sequence
+        self.scatter_move_max = 21
+        self._plan_only = None  # set by run_compiled during planning
+        # layout-aware window scheduling (order_windows); exact, default on
+        self.plan_windows = os.environ.get("QCT_SV_PLAN", "1") != "0"
+        self.layout_passes = 0  # move/swap/scatter passes executed so far
+
+    # -- carrying state across ---------------------------------------------
+    def load_numpy(self, re: np.ndarray, im: np.ndarray, axis_of) -> \
+            "FastStatevector":
+        """Take planes (in physical order) and their layout table, e.g. from
+        the JAX engine's ``re``, ``im`` and ``axis_of``. Returns self."""
+        n = 1 << self.N
+        re = np.asarray(re, np.float32).reshape(-1)
+        im = np.asarray(im, np.float32).reshape(-1)
+        if re.size != n or im.size != n:
+            raise ValueError(f"planes must hold 2**{self.N} = {n} values, got "
+                             f"{re.size} and {im.size}")
+        axis_of = [int(a) for a in axis_of]
+        if sorted(axis_of) != list(range(self.N)):
+            raise ValueError(f"axis_of must be a permutation of 0..{self.N - 1}")
+        self.re = self.im = None  # free the old planes first
+        self.re = torch.from_numpy(re.copy()).to(self.device)
+        self.im = torch.from_numpy(im.copy()).to(self.device)
+        self.axis_of = axis_of
+        return self
+
+    def to_numpy(self) -> tuple[np.ndarray, np.ndarray, list[int]]:
+        """(re, im, axis_of): planes in physical order and the layout."""
+        return (self.re.cpu().numpy(), self.im.cpu().numpy(),
+                list(self.axis_of))
+
+    # -- scheduling ------------------------------------------------------
+    @staticmethod
+    def _normalize(g) -> tuple[np.ndarray, tuple[int, ...]]:
+        """(matrix, targets) with Insert-style injections unitarised.
+
+        A 2-vector (a, b) means state injection: the register is fixed and
+        the target starts in |0>, so the injection is the state-prep
+        unitary [[a, -b*], [b, a*]].
+        """
+        mat, targets = g if isinstance(g, tuple) else (g.matrix, tuple(g.indices))
+        mat = np.asarray(mat)
+        if mat.size == 2:
+            a, b = mat.reshape(2)
+            mat = np.array([[a, -np.conj(b)], [b, np.conj(a)]])
+        return mat, tuple(int(t) for t in targets)
+
+    def _windows(self, gates):
+        """Fuse ``gates`` into windows; in slab mode additionally schedule
+        them with the layout planner (exact commuting reorder + adjacent
+        merge) unless ``plan_windows`` is off."""
+        max_bits = (self.slab_bits if self.fusion_mode == "slab"
+                    else min(fusion.MAX_WINDOW_BITS, self.N))
+        normalized = [self._normalize(g) for g in gates]
+        windows = fusion.fuse_windows(normalized, max_bits=max_bits)
+        if self.fusion_mode == "slab" and self.plan_windows:
+            windows = order_windows(windows, self.N, self.slab_bits,
+                                    self.scatter_move_max, self.axis_of)
+            windows = fusion.merge_adjacent_windows(windows,
+                                                    max_bits=max_bits)
+        return windows
+
+    def _plane(self, a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(
+            self.device)
+
+    # -- execution -------------------------------------------------------
+    def run(self, gates) -> "FastStatevector":
+        """Apply a sequence of gate objects (``.matrix`` + ``.indices``) or
+        ``(matrix, targets)`` tuples, one window at a time. Returns self."""
+        for u, tgts in self._windows(gates):
+            if self.fusion_mode == "slab":
+                self._apply_slab_window(u, tgts)
+            else:
+                self.re, self.im = fusion.apply_window_split(
+                    self.re, self.im, self._plane(u.real),
+                    self._plane(u.imag), tgts, self.N)
+        return self
+
+    def _run_pass(self, op: tuple):
+        """One layout pass, plane after plane. The engine drops its own
+        reference first, so each copy frees the plane it read: at most
+        three planes are live."""
+        copies = _layout_copies(op, self.N, self.slab_bits)
+        for name in ("re", "im"):
+            x = getattr(self, name)
+            setattr(self, name, None)
+            for shape, perm in copies:
+                x = _permute_copy(x, shape, perm)  # the old x is freed here
+            setattr(self, name, x)
+
+    def _ensure_slab_resident(self, tgts: tuple[int, ...]):
+        """Bring all target axes into the minor slab (lazy layout).
+
+        Pass selection lives in :func:`plan_slab_residency`; here each
+        emitted pass either runs on the planes or is recorded by
+        ``run_compiled``'s plan-only hook. Windows already resident pay
+        nothing.
+        """
+        N, S = self.N, self.slab_bits
+        phys = [self.axis_of[t] for t in tgts]
+
+        def emit(op, newpos):
+            self.layout_passes += 1
+            if self._plan_only is not None:
+                self._plan_only(op)
+            else:
+                self._run_pass(op)
+            self.axis_of = [newpos(p) for p in self.axis_of]
+
+        plan_slab_residency(N, S, self.scatter_move_max, phys, emit)
+
+    def _slab_window(self, u: np.ndarray, tgts: tuple[int, ...]):
+        """The window expanded to the full slab, transposed, as float32
+        ``(wt_re, wt_im)`` on the device. Targets must be slab-resident."""
+        S = self.slab_bits
+        positions = [self.axis_of[t] - (self.N - S) for t in tgts]
+        w_slab = fusion._np_expand(np.asarray(u, np.complex128), S, positions)
+        return self._plane(w_slab.real.T), self._plane(w_slab.imag.T)
+
+    def _apply_slab_window(self, u: np.ndarray, tgts: tuple[int, ...]):
+        """Apply one fused window with the lazy-layout slab scheme: move
+        the targets into the slab (they stay), then one in-place
+        ``(R, 2^S) @ (2^S, 2^S)`` split-real product."""
+        self._ensure_slab_resident(tgts)
+        wt_re, wt_im = self._slab_window(u, tgts)
+        self.re, self.im = slab_kernels.slab_matmul(self.re, self.im,
+                                                    wt_re, wt_im)
+
+    def run_compiled(self, gates) -> "FastStatevector":
+        """Slab-mode execution of a whole gate list from one recorded plan.
+
+        The plan (layout passes + slab windows) is made first on a shadow
+        layout table, exactly as the JAX engine traces it into one program,
+        then run in one host loop. Same result and ``layout_passes`` as
+        :meth:`run`. If planning fails, the layout table and pass count
+        roll back; the planes are not touched before the plan is complete.
+        """
+        if self.fusion_mode != "slab":
+            raise ValueError("run_compiled requires fusion_mode='slab'")
+        windows = self._windows(gates)
+        plan: list[tuple] = []
+        saved_layout = list(self.axis_of)
+        saved_passes = self.layout_passes
+        self._plan_only = plan.append
+        try:
+            for u, tgts in windows:
+                self._ensure_slab_resident(tgts)
+                plan.append(("matmul",) + self._slab_window(u, tgts))
+        except BaseException:
+            self.axis_of = saved_layout
+            self.layout_passes = saved_passes
+            raise
+        finally:
+            self._plan_only = None
+        for op in plan:
+            if op[0] == "matmul":
+                self.re, self.im = slab_kernels.slab_matmul(
+                    self.re, self.im, op[1], op[2])
+            else:
+                self._run_pass(op)
+        return self
+
+    def _layout_is_identity(self) -> bool:
+        return self.axis_of == list(range(self.N))
+
+    # -- readout ---------------------------------------------------------
+    def _p(self) -> torch.Tensor:
+        return self.re * self.re + self.im * self.im
+
+    def norm_sq(self) -> float:
+        return float(torch.sum(self.re * self.re) + torch.sum(self.im * self.im))
+
+    def probs(self) -> torch.Tensor:
+        """|amp|^2 vector in LOGICAL qubit order — any layout.
+
+        Identity layouts are free. Permuted layouts at N <= 22 use the
+        rank-N transpose; larger N a RUN-GROUPED transpose: the logical
+        order is a permutation of maximal physical-axis runs, so the view
+        rank is the run count. A layout with more than 16 runs is refused —
+        use :meth:`marginal` for subset readout there.
+        """
+        p = self._p()
+        if self._layout_is_identity():
+            return p
+        perm = list(self.axis_of)
+        if self.N <= 22:
+            return p.reshape((2,) * self.N).permute(perm).reshape(-1)
+        # maximal runs of consecutive physical axes in the logical order
+        runs = [[perm[0]]]
+        for a in perm[1:]:
+            if a == runs[-1][-1] + 1:
+                runs[-1].append(a)
+            else:
+                runs.append([a])
+        if len(runs) > 16:
+            raise ValueError(
+                f"probs() on a {len(runs)}-run permuted layout at N={self.N} "
+                "would need a high-rank transpose; read a subset via "
+                "marginal() instead")
+        starts = sorted(range(len(runs)), key=lambda i: runs[i][0])
+        shape = tuple(1 << len(runs[i]) for i in starts)
+        tperm = tuple(starts.index(i) for i in range(len(runs)))
+        return p.reshape(shape).permute(tperm).reshape(-1)
+
+    def marginal(self, qubits) -> torch.Tensor:
+        """Joint Born distribution of LOGICAL ``qubits`` (in the order
+        given) — any N, any slab layout. Returns a (2^k,) vector,
+        big-endian in ``qubits``.
+
+        One grouped reduction: |amp|^2 reshaped to the interleaved-segment
+        view of the qubits' physical axes (rank <= 2k+1) and summed over
+        the complementary segments, then reordered to the requested order.
+        """
+        qs = list(qubits)
+        if len(set(qs)) != len(qs):
+            raise ValueError(f"duplicate qubits in marginal: {qs}")
+        if not all(0 <= q < self.N for q in qs):
+            raise ValueError(f"qubits out of range for N={self.N}: {qs}")
+        if len(qs) > 16:
+            raise ValueError("marginal() of more than 16 qubits")
+        pos = [self.axis_of[q] for q in qs]
+        order = sorted(range(len(pos)), key=lambda i: pos[i])
+        spos = tuple(pos[i] for i in order)
+        shape, taxes = fusion._grouped_view(self.N, spos)
+        others = tuple(i for i in range(len(shape)) if i not in taxes)
+        # result axis j holds qubit qs[order[j]]; put qs[i] at axis i
+        inv = tuple(order.index(i) for i in range(len(qs)))
+        p = self._p().reshape(shape)
+        if others:  # torch sums over ALL axes for an empty dim list
+            p = torch.sum(p, dim=others)
+        return p.permute(inv).reshape(-1)
+
+    def probabilities(self, qubit: int) -> torch.Tensor:
+        """Marginal (p0, p1) of one LOGICAL qubit — any N, any slab layout,
+        by one reduction over the axes around its physical position."""
+        if not 0 <= qubit < self.N:
+            raise ValueError(f"qubit {qubit} out of range for N={self.N}")
+        pos = self.axis_of[qubit]
+        lead = 1 << pos                      # axes above the target bit
+        trail = 1 << (self.N - 1 - pos)      # axes below
+        return torch.sum(self._p().reshape(lead, 2, trail), dim=(0, 2))
+
+    def sample(self, generator: torch.Generator, shots: int = 1) -> np.ndarray:
+        """Terminal Born sampling of all qubits: (shots,) basis indices in
+        LOGICAL order.
+
+        Two-stage exact factorisation — a categorical over row sums
+        (marginal of the leading N - c_bits bits), then one over the chosen
+        row — so no 2^N-category draw is made (``torch.multinomial`` takes
+        at most 2^24 categories); at N = 30 the draws are over 2^19 rows
+        and 2^11 columns. ``generator`` must live on the engine's device.
+        """
+        C = 1 << self.c_bits
+        R = (1 << self.N) // C
+        p = self._p().reshape(R, C)
+        rows = torch.sum(p, dim=1)
+        r = torch.multinomial(rows, shots, replacement=True,
+                              generator=generator)
+        c = torch.multinomial(p[r], 1, generator=generator).squeeze(1)
+        samples = (r * C + c).cpu().numpy()
+        if self._layout_is_identity():
+            return samples
+        # slab layout: sampled indices are in PHYSICAL axis order — remap
+        # each bit to its logical position (host-side, (shots,) ints)
+        N = self.N
+        out = np.zeros_like(samples)
+        for l, p_ax in enumerate(self.axis_of):
+            bit = (samples >> (N - 1 - p_ax)) & 1
+            out |= bit << (N - 1 - l)
+        return out
