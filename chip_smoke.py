@@ -3,14 +3,17 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from the sources in this checkout, holds
-each against its plain PyTorch version on the card, checks the slab
-state-vector engine against a dense numpy reference, then drives the main
-path at full width: ``FastStatevector(30, device="cuda")`` in slab mode
-(two float32 planes of 4 GiB each, updated in place) through
-``run_compiled``. Prints one line per phase with its wall time, then the
-card's name and power limit, a JSON line of per-kernel numbers, and as its
-last line ``{"ok": true, "device": {...}}``. Any failure exits non-zero
-and prints no result; so does a machine without a CUDA device.
+each against its plain PyTorch version on the card, checks the state-vector
+engine in slab and in chain mode against a dense numpy reference, then
+drives both of its paths at full width, N = 30 (two float32 planes of
+4 GiB each, updated in place): ``FastStatevector(30, device="cuda")`` in
+slab mode through ``run_compiled``, and in chain mode through ``run``.
+Then it times each kernel at the shape its path gives it, beside its bound,
+its plain version and one library call. Prints one line per phase with its
+wall time, then the card's name and power limit, a JSON line of per-kernel
+numbers, and as its last line ``{"ok": true, "device": {...}}``. Any
+failure exits non-zero and prints no result; so does a machine without a
+CUDA device.
 
 Imports nothing of JAX: the references are the port's plain versions and
 numpy.
@@ -29,10 +32,13 @@ import torch
 # H100 SXM data-sheet peaks (FP32 outside the tensor cores; HBM3)
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
+# shared memory: 128 B per clock per SM, 132 SMs at the 1.98 GHz boost clock
+SMEM_BYTES_PER_S = 128 * 132 * 1.98e9
 
 N_FULL = 30          # full width: 2 x 4 GiB float32 planes
 N_CHECK = 14         # engine vs dense complex128 reference
-REPS = 5             # timed chains per main-path run
+REPS = 5             # timed chains (slab) or circuits (chain) per main path
+WARMUP = 3           # untimed runs before them
 KERNEL_RTOL = 1e-5   # max|kernel - plain| <= KERNEL_RTOL * max|plain|
 _T0 = time.perf_counter()
 
@@ -88,23 +94,81 @@ def random_planes(n: int, seed: int):
     return re, im
 
 
-def kernel_vs_plain(sk, re, im, wt_re, wt_im) -> tuple[float, float]:
-    """(max abs error, relative error) of the in-place kernel against the
-    plain version on the same inputs; raises on disagreement."""
-    want_r, want_i = sk.slab_matmul_plain(re, im, wt_re, wt_im)
+def kernel_vs_plain(kernel, plain, re, im, *args) -> tuple[float, float]:
+    """(max abs error, relative error) of the in-place ``kernel`` against
+    its ``plain`` version on the same inputs; raises on disagreement."""
+    name = kernel.__name__
+    want_r, want_i = plain(re, im, *args)
     got_r, got_i = re.clone(), im.clone()
     ptrs = (got_r.data_ptr(), got_i.data_ptr())
-    out = sk.slab_matmul(got_r, got_i, wt_re, wt_im)
+    out = kernel(got_r, got_i, *args)
     torch.cuda.synchronize()
     if (out[0].data_ptr(), out[1].data_ptr()) != ptrs:
-        raise AssertionError("slab_matmul did not update the planes in place")
+        raise AssertionError(f"{name} did not update the planes in place")
     err = max((got_r - want_r).abs().max().item(),
               (got_i - want_i).abs().max().item())
     scale = max(want_r.abs().max().item(), want_i.abs().max().item())
     if not err <= KERNEL_RTOL * scale:
-        raise AssertionError(f"slab_matmul disagrees with its plain version: "
+        raise AssertionError(f"{name} disagrees with its plain version: "
                              f"max abs err {err:.3e} > {KERNEL_RTOL} x {scale:.3e}")
     return err, err / scale
+
+
+def random_unitary(d: int, rng) -> np.ndarray:
+    q, _ = np.linalg.qr(rng.normal(size=(d, d)) + 1j * rng.normal(size=(d, d)))
+    return q.astype(np.complex64)
+
+
+def chain_operator(us, bits) -> tuple[np.ndarray, int, int]:
+    """A chain on contiguous amplitude bits lo..hi composed on the host into
+    one (2^w, 2^w) complex64 operator, w = hi - lo + 1: gates on different
+    bits commute, gates on one bit compose in chain order. Returns
+    ``(operator, lo, w)``."""
+    lo, hi = min(bits), max(bits)
+    if set(bits) != set(range(lo, hi + 1)):
+        raise ValueError(f"chain bits {sorted(set(bits))} are not contiguous")
+    per_bit = {b: np.eye(2, dtype=np.complex128) for b in range(lo, hi + 1)}
+    for u, b in zip(us, bits):
+        per_bit[b] = np.asarray(u, np.complex128) @ per_bit[b]
+    op = np.ones((1, 1), np.complex128)
+    for b in range(hi, lo - 1, -1):  # bit hi is the most significant
+        op = np.kron(op, per_bit[b])
+    return op.astype(np.complex64), lo, hi - lo + 1
+
+
+def library_call(mat, lo: int, w: int, n_qubits: int, device="cuda"):
+    """One complex64 ``torch.matmul`` applying the (2^w, 2^w) operator
+    ``mat`` to amplitude bits lo..lo+w-1 of a flat complex state: on the
+    (2^(N-lo-w), 2^w, 2^lo) view, or as ``x.view(-1, 2^w) @ mat^T`` when
+    lo = 0. The operator is built here, outside any timed region."""
+    m = torch.from_numpy(np.ascontiguousarray(mat, np.complex64)).to(device)
+    if lo == 0:
+        mt = m.T.contiguous()
+        return lambda x: torch.matmul(x.view(-1, 1 << w), mt)
+    shape = (1 << (n_qubits - lo - w), 1 << w, 1 << lo)
+    return lambda x: torch.matmul(m, x.view(shape))
+
+
+def cx_expected_diff(re, im, snap_re, snap_im, control: int, target: int,
+                     n_qubits: int) -> float:
+    """max |state - CX(control, target) snapshot| for big-endian
+    control > target, without building the expected planes."""
+    shape = (1 << target, 2, 1 << (control - target - 1), 2,
+             1 << (n_qubits - control - 1))
+    err = 0.0
+    for x, s in ((re, snap_re), (im, snap_im)):
+        x, s = x.view(shape), s.view(shape)
+        err = max(err, (x[:, :, :, 0] - s[:, :, :, 0]).abs().max().item(),
+                  (x[:, :, :, 1] - s[:, :, :, 1].flip(1)).abs().max().item())
+    return err
+
+
+def bound(n_bytes: float, fp32_ops: float) -> tuple[float, str]:
+    """(least ms on the card, what bounds it) from data-sheet peaks."""
+    bytes_ms = n_bytes / PEAK_BYTES_PER_S * 1e3
+    ops_ms = fp32_ops / PEAK_FP32_FLOPS * 1e3
+    return max(bytes_ms, ops_ms), ("operations" if ops_ms >= bytes_ms
+                                   else "bytes")
 
 
 def dense_reference(gates, n: int) -> np.ndarray:
@@ -133,6 +197,7 @@ def main() -> int:
     from quantum_computations_tpu_torch.dv import FastStatevector, gates, qop
     from quantum_computations_tpu_torch.dv import fast_sv
     from quantum_computations_tpu_torch.ops import _build, slab_kernels as sk
+    from quantum_computations_tpu_torch.ops import gate_kernels as gk
 
     with Phase("0 card"):
         card = subprocess.run(
@@ -145,7 +210,7 @@ def main() -> int:
 
     with Phase("1 build"):
         t = time.perf_counter()
-        logs = _build.build(["slab_matmul"])
+        logs = _build.build(["slab_matmul", "gate_mix", "chain_mix"])
         for name, out in logs.items():
             log(f"built {name} in {time.perf_counter() - t:.2f}s, cache hit: "
                 f"{out is None}")
@@ -158,11 +223,42 @@ def main() -> int:
             for rows in (1, 3, 1 << 14, 1 << 20):
                 re, im = random_planes(rows * d, seed=rows + d)
                 wt = random_window(d, seed=d)
-                err, rel = kernel_vs_plain(sk, re, im, *wt)
+                err, rel = kernel_vs_plain(sk.slab_matmul,
+                                           sk.slab_matmul_plain, re, im, *wt)
                 log(f"slab_matmul d={d} rows={rows}: max abs err {err:.3e}, "
                     f"rel {rel:.3e} (tol {KERNEL_RTOL} x max|plain|), "
                     f"launches so far {sk.slab_matmul.launches}")
         del re, im, wt  # phase 4 reads the peak memory of the engine alone
+
+    with Phase("2b gate kernels vs plain"):
+        rng = np.random.default_rng(11)
+        n = 20
+        for kernel, plain, span in ((gk.apply_1q, gk.apply_1q_plain, 1),
+                                    (gk.apply_2q_adjacent,
+                                     gk.apply_2q_adjacent_plain, 2)):
+            for q in (0, n // 2, n - span):
+                re, im = random_planes(1 << n, seed=q + span)
+                err, rel = kernel_vs_plain(kernel, plain, re, im,
+                                           random_unitary(1 << span, rng),
+                                           q, n)
+                log(f"{kernel.__name__} N={n} q={q}: max abs err {err:.3e}, "
+                    f"rel {rel:.3e} (tol {KERNEL_RTOL} x max|plain|), "
+                    f"launches so far {kernel.launches}")
+        for n in (12, 14, 20):
+            for k in (1, 9, 24):
+                # the planner's bits and one outside them, with repeats
+                pool = list(gk.fusable_bits(n)) + [0, n - 1]
+                bits = tuple(int(b) for b in rng.choice(pool, k))
+                us = np.stack([random_unitary(2, rng) for _ in bits])
+                re, im = random_planes(1 << n, seed=n + k)
+                err, rel = kernel_vs_plain(gk.apply_1q_chain,
+                                           gk.apply_1q_chain_plain, re, im,
+                                           us, bits, n)
+                log(f"apply_1q_chain N={n} k={k} bits={bits}: max abs err "
+                    f"{err:.3e}, rel {rel:.3e} (tol {KERNEL_RTOL} x "
+                    f"max|plain|), launches so far "
+                    f"{gk.apply_1q_chain.launches}")
+        del re, im
 
     with Phase("3 engine vs dense reference"):
         rng = np.random.default_rng(3)
@@ -191,6 +287,32 @@ def main() -> int:
                 f"{sv.layout_passes}, fidelity {fid:.9f}")
             if not fid > 1 - 1e-5:
                 raise AssertionError(f"fidelity {fid} <= 1 - 1e-5 ({label})")
+
+    with Phase("3b chain engine vs dense reference"):
+        rng = np.random.default_rng(13)
+        circuit = []
+        for layer in range(4):
+            for q in range(N_CHECK):  # qubits 0..6 chain, 7..13 apply_1q
+                axis = rng.normal(size=3)
+                circuit.append((qop.axis_rotation(rng.uniform(0, 2 * np.pi),
+                                                  axis / np.linalg.norm(axis)),
+                                (q,)))
+            circuit += [gates.CZ(q, q + 1) for q in range(layer, 6)]  # 2q
+            circuit += [gates.CX(5, 2), gates.CX(9, 10), gates.SWAP(11, 3),
+                        (random_unitary(8, rng), (12, 1, 6))]  # general
+        want = dense_reference(circuit, N_CHECK)
+        sv = FastStatevector(N_CHECK, device="cuda", fusion_mode="chain")
+        kinds = [p.kind for p in sv._plan(circuit)]
+        sv.run(circuit)
+        fid = abs(np.vdot(want, logical_amplitudes(sv))) ** 2
+        log(f"N={N_CHECK} chain mode: {len(circuit)} gates, plan kinds "
+            f"{ {k: kinds.count(k) for k in sorted(set(kinds))} }, fidelity "
+            f"{fid:.9f}")
+        if not fid > 1 - 1e-5:
+            raise AssertionError(f"chain-mode fidelity {fid} <= 1 - 1e-5")
+        if set(kinds) != {"chain", "2q", "xla"}:
+            raise AssertionError(f"the N={N_CHECK} circuit planned {kinds}")
+        del sv
 
     # -- the main path at full width --------------------------------------
     H = np.asarray(qop.H)
@@ -238,13 +360,129 @@ def main() -> int:
     if main_launches < 1:
         raise AssertionError("the main path launched no slab_matmul kernel")
 
+    # -- the chain-mode path at full width ---------------------------------
+    # circuit c (at N = 30): 24 random rotations on qubits 14..22 (bits
+    # 15..7, one chain), CZ(q, q+1) for q = 14..21 (eight 2q steps), and a
+    # rotation R of qubit 29 by pi/16 (bit 0, not fusable: one general
+    # step, which runs the apply_1q kernel). R is not its own inverse, so
+    # qubit 29's P(0) after the counted runs tells how often R ran.
+    rng = np.random.default_rng(29)
+    q0 = N_FULL - 16  # qubit of bit 15
+    chain_qubits = list(range(q0, q0 + 9)) + [int(q) for q in
+                                              rng.integers(q0, q0 + 9, 15)]
+    rng.shuffle(chain_qubits)
+    circuit_c = [(random_unitary(2, rng), (q,)) for q in chain_qubits]
+    circuit_c += [gates.CZ(q, q + 1) for q in range(q0, q0 + 8)]
+    r_last = qop.axis_rotation(np.pi / 16, np.ones(3) / np.sqrt(3))
+    circuit_c += [(r_last, (N_FULL - 1,))]
+    cx_general = gates.CX(N_FULL - 1, q0)  # a 2-qubit general step, unsorted
+    gate_kernels = (gk.apply_1q_chain, gk.apply_2q_adjacent, gk.apply_1q)
+    runs = WARMUP + REPS
+    torch.cuda.reset_peak_memory_stats()
+    with Phase(f"4b chain-mode path N={N_FULL}"):
+        sv = FastStatevector(N_FULL, device="cuda", fusion_mode="chain")
+        plan = sv._plan(circuit_c)
+        kinds = [p.kind for p in plan]
+        planned = {"chain": kinds.count("chain"), "2q": kinds.count("2q"),
+                   "general": kinds.count("xla")}
+        if planned != {"chain": 1, "2q": 8, "general": 1}:
+            raise AssertionError(f"circuit c planned {planned}")
+        for kernel in gate_kernels:
+            kernel.launches = 0
+        for _ in range(WARMUP):
+            sv.run(circuit_c)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(REPS):
+            sv.run(circuit_c)
+        torch.cuda.synchronize()
+        chain_ms = (time.perf_counter() - t) / REPS * 1e3
+        chain_launches = {k.__name__: k.launches for k in gate_kernels}
+        # the runs' peak, before the readouts below add their temporaries
+        peak_chain_gib = torch.cuda.max_memory_allocated() / 2**30
+        per_run = {name: n / runs for name, n in chain_launches.items()}
+        if per_run != {"apply_1q_chain": 1, "apply_2q_adjacent": 8,
+                       "apply_1q": 1}:
+            raise AssertionError(f"launches per run {per_run} differ from "
+                                 f"the plan {planned}")
+        norm_err = abs(sv.norm_sq() - 1.0)
+        # qubits 0..13 and 23..28 stay |0>; qubit 29 is R^runs |0>
+        p_untouched = [sv.probabilities(q)[0].item()
+                       for q in (0, q0 - 1, q0 + 9, N_FULL - 2)]
+        p_last = sv.probabilities(N_FULL - 1)[0].item()
+        p_last_want = abs(np.linalg.matrix_power(r_last, runs)[0, 0]) ** 2
+        log(f"N={N_FULL} circuit c ({len(circuit_c)} gates): {chain_ms:.3f} "
+            f"ms/run, {chain_ms / len(circuit_c):.4f} ms/gate; plan "
+            f"{planned}; launches per run {per_run}; |norm_sq - 1| "
+            f"{norm_err:.2e}; P(0) of untouched qubits {p_untouched}; P(0) "
+            f"of qubit {N_FULL - 1} {p_last:.7f} (R^{runs}: "
+            f"{p_last_want:.7f}); max_memory_allocated "
+            f"{peak_chain_gib:.2f} GiB")
+        if not norm_err < 1e-3:
+            raise AssertionError(f"|norm_sq - 1| = {norm_err} >= 1e-3")
+        if not min(p_untouched) > 1 - 1e-4:
+            raise AssertionError(f"untouched qubits left |0>: {p_untouched}")
+        if not abs(p_last - p_last_want) < 1e-4:
+            raise AssertionError(f"P(0) of qubit {N_FULL - 1} is {p_last}, "
+                                 f"R^{runs} gives {p_last_want}")
+        # a general step of two qubits (plain torch, out of place) through
+        # the engine: its time per run and its peak memory, then one more
+        # application held against the snapshot it permutes
+        if [p.kind for p in sv._plan([cx_general])] != ["xla"]:
+            raise AssertionError(f"{cx_general} is not a general step")
+        torch.cuda.synchronize()
+        resident_gib = torch.cuda.memory_allocated() / 2**30
+        torch.cuda.reset_peak_memory_stats()
+        general_ms = cuda_ms(lambda: sv.run([cx_general]), 2)
+        general_peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        snap = (sv.re.clone(), sv.im.clone())
+        sv.run([cx_general])
+        general_err = cx_expected_diff(sv.re, sv.im, *snap, N_FULL - 1, q0,
+                                       N_FULL)
+        del snap
+        log(f"general step CX({N_FULL - 1}, {q0}) through run: "
+            f"{general_ms:.3f} ms; max_memory_allocated {general_peak_gib:.2f}"
+            f" GiB (planes {resident_gib:.2f} GiB); max abs err against the "
+            f"permuted snapshot {general_err:.3e}")
+        if not general_err <= 1e-6:
+            raise AssertionError(f"the general step CX is off by "
+                                 f"{general_err}")
+        # each step of circuit c alone, on the engine's planes (outside the
+        # counted run): the path's time by kernel
+        steps = {
+            "apply_1q_chain": lambda: gk.apply_1q_chain(
+                sv.re, sv.im, np.stack(plan[0].matrices), tuple(plan[0].bits),
+                N_FULL),
+            "apply_2q_adjacent": lambda: gk.apply_2q_adjacent(
+                sv.re, sv.im, plan[1].matrices[0], plan[1].targets[0], N_FULL),
+            "apply_1q": lambda: gk.apply_1q(
+                sv.re, sv.im, plan[-1].matrices[0], plan[-1].targets[0],
+                N_FULL)}
+        step_ms = {name: cuda_ms(fn, 3) for name, fn in steps.items()}
+        shares = {name: step_ms[name] * per_run[name] / chain_ms
+                  for name in step_ms}
+        log(f"circuit c by step: ms per launch {step_ms}; share of the run "
+            f"{shares}; rest (host, derived) "
+            f"{chain_ms - sum(step_ms[k] * per_run[k] for k in step_ms):.3f} ms")
+        del sv
+    print(json.dumps({"chain_path": {
+        "ms_per_run": chain_ms, "ms_per_gate": chain_ms / len(circuit_c),
+        "gates": len(circuit_c), "planned": planned,
+        "launches_per_run": per_run, "step_ms": step_ms, "shares": shares,
+        "max_memory_allocated_gib": peak_chain_gib,
+        "general_step": {"gate": f"CX({N_FULL - 1}, {q0})",
+                         "ms": general_ms, "max_abs_err": general_err,
+                         "max_memory_allocated_gib": general_peak_gib,
+                         "resident_gib": resident_gib}}}), flush=True)
+
     with Phase(f"5 kernel at the main path's shape (N={N_FULL}, d=128)"):
         d = 128
         n = 1 << N_FULL
         rows = n // d
         re, im = random_planes(n, seed=5)
         wt_re, wt_im = random_window(d, seed=7)
-        err, rel = kernel_vs_plain(sk, re, im, wt_re, wt_im)
+        err, rel = kernel_vs_plain(sk.slab_matmul, sk.slab_matmul_plain,
+                                   re, im, wt_re, wt_im)
         log(f"slab_matmul at N={N_FULL}: max abs err {err:.3e}, rel {rel:.3e}")
         ms = cuda_ms(lambda: sk.slab_matmul(re, im, wt_re, wt_im), 5)
         plain_ms = cuda_ms(lambda: sk.slab_matmul_plain(re, im, wt_re, wt_im), 3)
@@ -265,15 +503,85 @@ def main() -> int:
             f"{plain_ms:.3f} ms; library (one complex64 torch.matmul) "
             f"{library_ms:.3f} ms")
 
-    print(card, flush=True)
-    print(json.dumps({"kernels": [{
+    kernels = [{
         "name": "slab_matmul", "route": "cuda",
         "source": "quantum_computations_tpu_torch/ops/csrc/slab_matmul.cu",
         "replaces": "quantum_computations_tpu/ops/pallas_kernels.py:254",
         "launches": main_launches, "max_abs_err": err, "ms": ms,
         "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-        "library_ms": library_ms}]}), flush=True)
+        "library_ms": library_ms}]
+
+    with Phase(f"6 gate kernels at the chain path's shapes (N={N_FULL})"):
+        n = 1 << N_FULL
+        rng = np.random.default_rng(31)
+        plane_bytes = 4 * n * 4  # both planes read and written once
+        k = 24
+        u1, u2 = random_unitary(2, rng), random_unitary(4, rng)
+        us = np.stack([random_unitary(2, rng) for _ in range(k)])
+        bits = tuple(range(15, 6, -1)) * 2 + tuple(range(7, 13))
+        # (name, kernel, plain, source, replaces, args at the path's shape,
+        #  bound, library operator (mat, lo, w), args also timed)
+        cases = (
+            ("apply_1q", gk.apply_1q, gk.apply_1q_plain, "gate_mix.cu",
+             "pallas_kernels.py:31", (u1, N_FULL - 1, N_FULL),
+             bound(plane_bytes + 32, (n // 2) * 32), (u1, 0, 1),
+             (u1, 15, N_FULL)),
+            ("apply_2q_adjacent", gk.apply_2q_adjacent,
+             gk.apply_2q_adjacent_plain, "gate_mix.cu",
+             "pallas_kernels.py:104", (u2, q0, N_FULL),
+             bound(plane_bytes + 128, (n // 4) * 128),
+             (u2, N_FULL - q0 - 2, 2), None),
+            ("apply_1q_chain", gk.apply_1q_chain, gk.apply_1q_chain_plain,
+             "chain_mix.cu", "pallas_kernels.py:219", (us, bits, N_FULL),
+             bound(plane_bytes + 36 * k, k * (n // 2) * 32),
+             chain_operator(us, bits), None))
+        for (name, kernel, plain, src, replaces, args, (b_ms, b_by), lib,
+             also) in cases:
+            re, im = random_planes(n, seed=len(kernels))
+            k_err, k_rel = kernel_vs_plain(kernel, plain, re, im, *args)
+            k_ms = cuda_ms(lambda: kernel(re, im, *args), 5)
+            also_ms = (cuda_ms(lambda: kernel(re, im, *also), 5)
+                       if also is not None else None)
+            k_plain_ms = cuda_ms(lambda: plain(re, im, *args), 3)
+            # one complex64 torch.matmul of the same function, held against
+            # the kernel on the same inputs, then timed
+            call = library_call(*lib, N_FULL)
+            xc = torch.complex(re, im)
+            want = call(xc)
+            kernel(re, im, *args)
+            lib_err = max(
+                (want.real - re.view(want.shape)).abs().max().item(),
+                (want.imag - im.view(want.shape)).abs().max().item())
+            lib_scale = want.abs().max().item()
+            del want, re, im
+            if not lib_err <= KERNEL_RTOL * lib_scale:
+                raise AssertionError(f"the library call of {name} disagrees "
+                                     f"with the kernel: {lib_err:.3e}")
+            lib_ms = cuda_ms(lambda: call(xc), 3)
+            del xc, call
+            smem_ms = (k * 2 * n * 4 * 2) / SMEM_BYTES_PER_S * 1e3 \
+                if kernel is gk.apply_1q_chain else None
+            log(f"{name} at N={N_FULL}, args {args[1:]}: max abs err "
+                f"{k_err:.3e}, rel {k_rel:.3e}; {k_ms:.3f} ms per launch"
+                + (f" ({also_ms:.3f} ms at args {also[1:]})"
+                   if also is not None else "")
+                + f"; bound {b_ms:.3f} ms ({b_by}); plain {k_plain_ms:.3f} "
+                f"ms; library (one complex64 torch.matmul, (2^{lib[2]})^2 "
+                f"operator on bits {lib[1]}..{lib[1] + lib[2] - 1}) "
+                f"{lib_ms:.3f} ms, max abs diff to the kernel {lib_err:.3e}"
+                + (f"; shared-memory round trip per gate, {k} gates: "
+                   f"{smem_ms:.3f} ms" if smem_ms is not None else ""))
+            kernels.append({
+                "name": name, "route": "cuda",
+                "source": f"quantum_computations_tpu_torch/ops/csrc/{src}",
+                "replaces": f"quantum_computations_tpu/ops/{replaces}",
+                "launches": chain_launches[name], "max_abs_err": k_err,
+                "ms": k_ms, "plain_ms": k_plain_ms, "bound_ms": b_ms,
+                "bound_by": b_by, "library_ms": lib_ms})
+
+    print(card, flush=True)
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

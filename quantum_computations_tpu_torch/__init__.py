@@ -5,9 +5,12 @@ imports ``torch`` and ``numpy`` only, never ``jax`` and nothing of the JAX
 package. Entry points run on ``cuda`` unless the caller passes
 ``device="cpu"``; with no CUDA device and none asked for they raise.
 
-Ported so far: the DV large-N state-vector engine in its default slab mode
-(:class:`.dv.FastStatevector`) and its hand-written Hopper kernel
-(:func:`.ops.slab_kernels.slab_matmul`).
+Ported so far: the DV large-N state-vector engine
+(:class:`.dv.FastStatevector`) in its slab, window and chain modes, and all
+four of its hand-written Hopper kernels: :func:`.ops.slab_kernels.slab_matmul`
+(slab mode) and :func:`.ops.gate_kernels.apply_1q_chain`,
+:func:`.ops.gate_kernels.apply_2q_adjacent` and
+:func:`.ops.gate_kernels.apply_1q` (chain mode).
 """
 
 from . import config

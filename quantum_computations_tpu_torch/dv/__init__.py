@@ -1,6 +1,7 @@
 """Qubit state-vector engine of the port (counterpart of
 ``quantum_computations_tpu/dv``): gates and named states, window fusion,
-and the large-N split-real :class:`FastStatevector` in slab mode."""
+and the large-N split-real :class:`FastStatevector` (slab, window and
+chain modes)."""
 
 from . import fusion, qop
 from .states import State

@@ -1,5 +1,6 @@
 """Large-N split-real state-vector engine (counterpart of
-``quantum_computations_tpu/dv/fast_sv.py``), slab mode.
+``quantum_computations_tpu/dv/fast_sv.py``), in its slab, window and chain
+modes.
 
 The state is two float32 planes (re, im) of length 2^N on one device. At
 N = 30 each plane is 4 GiB, and the window update runs in place.
@@ -17,7 +18,12 @@ Gate scheduling (``fusion_mode``):
   read through the layout.
 - ``"window"`` — the same fused windows applied in logical order by the
   grouped einsum of :func:`.fusion.apply_window_split` (plain PyTorch).
-- ``"chain"`` — the per-gate chain kernels; not ported yet.
+- ``"chain"`` — the per-gate kernels of :mod:`..ops.gate_kernels`, planned
+  as the JAX engine plans them (:meth:`FastStatevector._plan`): runs of
+  fusable single-qubit gates form one ``apply_1q_chain`` pass, adjacent
+  pairs with inner >= 128 one ``apply_2q_adjacent`` pass, and every other
+  gate a general step (``apply_1q`` for one qubit, else the plain grouped
+  einsum of :func:`_apply_xla_general`). The layout stays the identity.
 
 Each layout pass is one or more ``reshape -> permute -> contiguous``
 copies, run on one plane and then the other, each copy replacing the plane
@@ -28,13 +34,14 @@ from __future__ import annotations
 
 import math
 import os
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
 
 from . import fusion
 from ..config import REAL_DTYPE, resolve_device
-from ..ops import slab_kernels
+from ..ops import gate_kernels, slab_kernels
 
 __all__ = ["FastStatevector", "order_windows", "plan_slab_residency"]
 
@@ -351,6 +358,40 @@ def order_windows(windows, N: int, S: int, scatter_move_max: int,
         lambda lay, tgts: _residency_cost(N, S, scatter_move_max, lay, tgts))
 
 
+def _apply_xla_general(re: torch.Tensor, im: torch.Tensor, u,
+                       targets: tuple[int, ...], num_qubits: int):
+    """A k-qubit unitary on big-endian ``targets`` IN GATE ORDER (e.g.
+    ``CX(5, 2)``), out of place, plain PyTorch.
+
+    The counterpart of the JAX engine's tensordot step. The operator is
+    permuted to sorted target order and applied by the grouped einsum of
+    :func:`.fusion.apply_window_split` (rank <= 2k+1 at any N, never the
+    rank-N view).
+    """
+    k = len(targets)
+    order = sorted(range(k), key=lambda i: targets[i])
+    u = np.asarray(u, np.complex128).reshape((2,) * (2 * k))
+    u = u.transpose(order + [k + i for i in order]).reshape(1 << k, 1 << k)
+    u = u.astype(np.complex64)
+
+    def plane(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(re.device)
+
+    return fusion.apply_window_split(re, im, plane(u.real), plane(u.imag),
+                                     tuple(targets[i] for i in order),
+                                     num_qubits)
+
+
+@dataclass
+class _Plan:
+    """One scheduled device call of chain mode."""
+
+    kind: str                      # "chain" | "2q" | "xla"
+    matrices: list = field(default_factory=list)
+    bits: list = field(default_factory=list)    # chain: amplitude bits
+    targets: tuple = ()                         # 2q/xla: qubit indices
+
+
 class FastStatevector:
     """Unitary-circuit engine over split-real float32 planes.
 
@@ -360,14 +401,15 @@ class FastStatevector:
         State size; planes are float32 of shape (2**num_qubits,).
     device:
         ``"cuda"`` (default; raises without a CUDA device) or ``"cpu"``.
-        On CUDA every slab window goes through the Hopper kernel, on the
-        CPU through its plain version.
+        On CUDA every slab window and every chain-mode kernel step goes
+        through its Hopper kernel, on the CPU through its plain version.
     fusion_mode:
-        ``"slab"`` (default, or ``QCT_SV_FUSION``) or ``"window"``;
-        ``"chain"`` raises :class:`NotImplementedError`.
+        ``"slab"`` (default, or ``QCT_SV_FUSION``), ``"window"`` or
+        ``"chain"``.
     """
 
-    C_BITS = 11  # sample(): columns of the two-stage row/column draw
+    C_BITS = 11  # chain planner's columns; sample()'s row/column split
+    BLOCK_ROWS = 32  # chain planner's block rows (the JAX engine's layout)
 
     def __init__(self, num_qubits: int, *,
                  device: str | torch.device | None = None,
@@ -375,15 +417,15 @@ class FastStatevector:
         self.N = int(num_qubits)
         if fusion_mode is None:
             fusion_mode = os.environ.get("QCT_SV_FUSION", "slab")
-        if fusion_mode == "chain":
-            raise NotImplementedError(
-                "fusion_mode='chain' (the apply_1q_chain / apply_2q_adjacent "
-                "kernels) comes with the next slice of the port; use 'slab'")
-        if fusion_mode not in ("window", "slab"):
+        if fusion_mode not in ("window", "chain", "slab"):
             raise ValueError(f"unknown fusion_mode {fusion_mode!r}")
         self.fusion_mode = fusion_mode
         self.device = resolve_device(device)
         self.c_bits = min(self.C_BITS, self.N - 1)
+        self.block_rows = min(self.BLOCK_ROWS, 1 << (self.N - self.c_bits))
+        # chain mode: the amplitude bits the planner fuses into one pass
+        self._fusable = set(gate_kernels.fusable_bits(self.N, self.c_bits,
+                                                      self.block_rows))
         n = 1 << self.N
         self.re = torch.zeros(n, dtype=REAL_DTYPE, device=self.device)
         self.re[0] = 1.0
@@ -426,6 +468,10 @@ class FastStatevector:
                 list(self.axis_of))
 
     # -- scheduling ------------------------------------------------------
+    def _bit(self, qubit: int) -> int:
+        """Amplitude-bit position of a big-endian qubit index."""
+        return self.N - qubit - 1
+
     @staticmethod
     def _normalize(g) -> tuple[np.ndarray, tuple[int, ...]]:
         """(matrix, targets) with Insert-style injections unitarised.
@@ -456,6 +502,32 @@ class FastStatevector:
                                                     max_bits=max_bits)
         return windows
 
+    def _plan(self, gates) -> list[_Plan]:
+        """Chain-mode planner (the JAX engine's, unchanged): runs of fusable
+        1q gates form one chain of at most 24, adjacent pairs whose inner
+        stride is >= 128 a "2q" step, everything else an "xla" step."""
+        plans: list[_Plan] = []
+        chain: _Plan | None = None
+        for g in gates:
+            mat, targets = self._normalize(g)
+            k = len(targets)
+            bit = self._bit(targets[0])
+            if k == 1 and bit in self._fusable:
+                if chain is None or \
+                        len(chain.bits) >= gate_kernels._MAX_CHAIN_LEN:
+                    chain = _Plan("chain")
+                    plans.append(chain)
+                chain.matrices.append(mat)
+                chain.bits.append(bit)
+                continue
+            chain = None
+            if (k == 2 and targets[1] == targets[0] + 1
+                    and self.N - targets[0] - 2 >= 7):
+                plans.append(_Plan("2q", matrices=[mat], targets=targets))
+            else:
+                plans.append(_Plan("xla", matrices=[mat], targets=targets))
+        return plans
+
     def _plane(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(
             self.device)
@@ -463,7 +535,10 @@ class FastStatevector:
     # -- execution -------------------------------------------------------
     def run(self, gates) -> "FastStatevector":
         """Apply a sequence of gate objects (``.matrix`` + ``.indices``) or
-        ``(matrix, targets)`` tuples, one window at a time. Returns self."""
+        ``(matrix, targets)`` tuples: one window at a time (slab, window)
+        or one planned step at a time (chain). Returns self."""
+        if self.fusion_mode == "chain":
+            return self._run_chain(gates)
         for u, tgts in self._windows(gates):
             if self.fusion_mode == "slab":
                 self._apply_slab_window(u, tgts)
@@ -471,6 +546,29 @@ class FastStatevector:
                 self.re, self.im = fusion.apply_window_split(
                     self.re, self.im, self._plane(u.real),
                     self._plane(u.imag), tgts, self.N)
+        return self
+
+    def _run_chain(self, gates) -> "FastStatevector":
+        """Chain mode: each planned step is one kernel launch on CUDA (in
+        place), its plain version on the CPU. A single-qubit general step
+        runs the ``apply_1q`` kernel, which has no lane rule on the GPU;
+        the plan itself stays the JAX engine's."""
+        for plan in self._plan(gates):
+            if plan.kind == "chain":
+                self.re, self.im = gate_kernels.apply_1q_chain(
+                    self.re, self.im, np.stack(plan.matrices),
+                    tuple(plan.bits), self.N)
+            elif plan.kind == "2q":
+                self.re, self.im = gate_kernels.apply_2q_adjacent(
+                    self.re, self.im, plan.matrices[0], plan.targets[0],
+                    self.N)
+            elif len(plan.targets) == 1:
+                self.re, self.im = gate_kernels.apply_1q(
+                    self.re, self.im, plan.matrices[0], plan.targets[0],
+                    self.N)
+            else:
+                self.re, self.im = _apply_xla_general(
+                    self.re, self.im, plan.matrices[0], plan.targets, self.N)
         return self
 
     def _run_pass(self, op: tuple):

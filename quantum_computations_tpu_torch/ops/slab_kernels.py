@@ -4,8 +4,8 @@
 :func:`slab_matmul` is the hand-written Hopper kernel of the slab engine
 (``csrc/slab_matmul.cu``); :func:`slab_matmul_plain` is the same function in
 plain PyTorch, used for CPU tensors and as the kernel's reference. The
-three chain-mode kernels (``apply_1q_chain``, ``apply_2q_adjacent`` and
-their base case ``apply_1q``) follow in the next slice of the port.
+chain-mode kernels (``apply_1q_chain``, ``apply_2q_adjacent`` and their
+base case ``apply_1q``) are in :mod:`.gate_kernels`.
 """
 
 from __future__ import annotations

@@ -1,4 +1,6 @@
-"""The port's slab-mode ``FastStatevector`` against the JAX engine.
+"""The port's ``FastStatevector`` against the JAX engine: slab mode, and
+chain mode against the JAX chain engine with its Pallas kernels in
+interpret mode (same planner, so the plans must be identical).
 
 The same gates (made from a numpy seed) run through the JAX
 ``FastStatevector`` in slab mode, on both of its paths (the Pallas
@@ -298,12 +300,184 @@ def test_sample_histogram_matches_probs():
     assert stat < chi2.ppf(1 - 1e-4, int(keep.sum()) - 1), stat
 
 
-def test_chain_mode_not_ported(monkeypatch):
-    with pytest.raises(NotImplementedError, match="next slice"):
-        FastStatevector(4, device="cpu", fusion_mode="chain")
+# -- chain mode ---------------------------------------------------------------
+def _jax_chain(n):
+    return jfsv.FastStatevector(n, use_pallas=True, interpret=True,
+                                fusion_mode="chain")
+
+
+def _jax_mixed_circuit():
+    """The JAX package's own chain-mode circuit (tests/test_fast_sv.py):
+    a chain, a 2q step, a non-adjacent and a small-inner general step."""
+    gates = [jgates.H(0), jgates.H(1), jgates.H(2), jgates.CX(1, 2),
+             jgates.T(0), jgates.P(1), jgates.CZ(4, 7), jgates.H(9),
+             jgates.X(5), jgates.Y(6)]
+    return [(np.asarray(g.matrix), tuple(g.indices)) for g in gates]
+
+
+def _chain_circuit(rng, n, n_gates):
+    """Random gates at N = 14 that plan every kind: 1q rotations (fusable
+    on qubits 0..6), adjacent pairs, and general steps with unsorted
+    targets (CX(5, 2) among them)."""
+    gates = [(_rand_u(rng, 1), (q,)) for q in range(7)]
+    gates += [(np.asarray(jgates.CX(5, 2).matrix), (5, 2))]
+    for _ in range(n_gates):
+        r = rng.random()
+        if r < 0.55:
+            gates.append((_rand_u(rng, 1), (int(rng.integers(n)),)))
+        elif r < 0.8:
+            q = int(rng.integers(n - 1))
+            gates.append((_rand_u(rng, 2), (q, q + 1)))
+        else:
+            t = tuple(int(x) for x in rng.choice(n, 2, replace=False))
+            gates.append((_rand_u(rng, 2), t))
+    return gates
+
+
+def _assert_chain_readouts(tsv, jsv):
+    assert tsv._layout_is_identity()
+    np.testing.assert_allclose(tsv.re.numpy(), np.asarray(jsv.re), atol=ATOL)
+    np.testing.assert_allclose(tsv.im.numpy(), np.asarray(jsv.im), atol=ATOL)
+    np.testing.assert_allclose(tsv.probs().numpy(), np.asarray(jsv.probs()),
+                               atol=ATOL)
+    N = tsv.N
+    for qs in [(0,), (N - 1, 2), (3, 0, N - 2)]:
+        np.testing.assert_allclose(tsv.marginal(list(qs)).numpy(),
+                                   np.asarray(jsv.marginal(list(qs))),
+                                   atol=ATOL)
+    for q in (0, N // 2, N - 1):
+        np.testing.assert_allclose(tsv.probabilities(q).numpy(),
+                                   np.asarray(jsv.probabilities(q)),
+                                   atol=ATOL)
+    assert abs(tsv.norm_sq() - jsv.norm_sq()) < 1e-5
+
+
+def _kinds(plans):
+    return [p.kind for p in plans]
+
+
+def test_chain_engine_matches_jax_on_its_own_circuit():
+    N = 10
+    gates = _jax_mixed_circuit()
+    jsv = _jax_chain(N).run(gates)
+    tsv = FastStatevector(N, device="cpu", fusion_mode="chain").run(gates)
+    assert set(_kinds(tsv._plan(gates))) == {"chain", "2q", "xla"}
+    _assert_chain_readouts(tsv, jsv)
+    np.testing.assert_allclose(tsv.probs().numpy(),
+                               np.abs(_dense(gates, N)) ** 2, atol=ATOL)
+
+
+def test_chain_engine_matches_jax_random_circuit():
+    rng = np.random.default_rng(37)
+    N = 14
+    gates = _chain_circuit(rng, N, 20)
+    tsv = FastStatevector(N, device="cpu", fusion_mode="chain").run(gates)
+    kinds = _kinds(tsv._plan(gates))
+    assert {"chain", "2q", "xla"} <= set(kinds)
+    jsv = _jax_chain(N).run(gates)
+    _assert_chain_readouts(tsv, jsv)
+    np.testing.assert_allclose(tsv.probs().numpy(),
+                               np.abs(_dense(gates, N)) ** 2, atol=ATOL)
+
+
+def _jax_planner(n):
+    """A JAX chain engine that plans but holds no planes (N = 30 would
+    allocate 8 GiB): the fields ``_plan`` reads, set as the JAX engine's
+    ``__init__`` sets them."""
+    from quantum_computations_tpu.ops import pallas_kernels as pk
+
+    sv = object.__new__(jfsv.FastStatevector)
+    sv.N, sv.use_pallas = n, True
+    c_bits = min(jfsv.FastStatevector.C_BITS, n - 1)
+    block_rows = min(jfsv.FastStatevector.BLOCK_ROWS, 1 << (n - c_bits))
+    sv._fusable = set(pk.fusable_bits(n, c_bits, block_rows))
+    if n <= 16:
+        assert sv._fusable == _jax_chain(n)._fusable
+    return sv
+
+
+def _same_plans(got, want):
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert (g.kind, list(g.bits), tuple(g.targets)) == \
+            (w.kind, list(w.bits), tuple(w.targets))
+        assert len(g.matrices) == len(w.matrices)
+        for a, b in zip(g.matrices, w.matrices):
+            np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("N", [10, 14, 16, 30])
+def test_chain_plan_identical_to_jax(N):
+    """Planning only (no planes touched): the port's plan equals JAX's
+    gate for gate. The port plans on the meta device at N = 30."""
+    rng = np.random.default_rng(N)
+    tsv = FastStatevector(N, device="meta" if N > 16 else "cpu",
+                          fusion_mode="chain")
+    jsv = _jax_planner(N)
+    assert tsv._fusable == jsv._fusable
+    for _ in range(5):
+        gates = _circuit(rng, N, 60)
+        # adjacent pairs, and runs of fusable 1q gates, on every qubit
+        gates += [(_rand_u(rng, 2), (q, q + 1)) for q in range(N - 1)]
+        gates += [(_rand_u(rng, 1), (q,)) for q in range(N)] * 2
+        gates += [jgates.Insert(1, JState.T)]
+        _same_plans(tsv._plan(gates), jsv._plan(gates))
+
+
+def test_chain_longer_than_24_splits_as_in_jax():
+    N = 12
+    rng = np.random.default_rng(3)
+    gates = [(_rand_u(rng, 1), (int(q),)) for q in rng.integers(0, 5, 30)]
+    tsv = FastStatevector(N, device="cpu", fusion_mode="chain")
+    plans = tsv._plan(gates)
+    assert [len(p.bits) for p in plans] == [24, 6]
+    _same_plans(plans, _jax_planner(N)._plan(gates))
+    tsv.run(gates)
+    np.testing.assert_allclose(tsv.probs().numpy(),
+                               np.abs(_dense(gates, N)) ** 2, atol=ATOL)
+
+
+def test_load_numpy_carries_jax_chain_state_across():
+    """Run half a circuit in the JAX chain engine, finish it in the port's."""
+    rng = np.random.default_rng(47)
+    N = 12
+    gates = _chain_circuit(rng, N, 10)
+    first, second = gates[:9], gates[9:]
+    jhalf = _jax_chain(N).run(first)
+    tsv = FastStatevector(N, device="cpu", fusion_mode="chain").load_numpy(
+        np.asarray(jhalf.re), np.asarray(jhalf.im), jhalf.axis_of)
+    tsv.run(second)
+    jfull = jhalf.run(second)
+    _assert_chain_readouts(tsv, jfull)
+
+
+def test_chain_selected_by_env_and_run_compiled_refuses(monkeypatch):
     monkeypatch.setenv("QCT_SV_FUSION", "chain")
-    with pytest.raises(NotImplementedError):
+    sv = FastStatevector(4, device="cpu")
+    assert sv.fusion_mode == "chain"
+    with pytest.raises(ValueError, match="slab"):
+        sv.run_compiled([tgates.H(0)])
+    monkeypatch.setenv("QCT_SV_FUSION", "bogus")
+    with pytest.raises(ValueError, match="bogus"):
         FastStatevector(4, device="cpu")
+
+
+@pytest.mark.parametrize("targets", [(5, 2), (3, 0, 6), (6, 1), (2, 7, 4)])
+def test_general_step_matches_jax_unsorted(targets):
+    """The plain general step on targets in gate order."""
+    import jax.numpy as jnp
+
+    rng = np.random.default_rng(sum(targets))
+    N = 8
+    xr = rng.normal(size=1 << N).astype(np.float32)
+    xi = rng.normal(size=1 << N).astype(np.float32)
+    u = _rand_u(rng, len(targets))
+    want = jfsv._apply_xla_general(jnp.asarray(xr), jnp.asarray(xi), u,
+                                   targets, N)
+    got = tfsv._apply_xla_general(torch.from_numpy(xr), torch.from_numpy(xi),
+                                  u, targets, N)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-5)
 
 
 def test_no_cuda_no_device_raises(monkeypatch):
