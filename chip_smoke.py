@@ -29,11 +29,11 @@ import time
 import numpy as np
 import torch
 
-# H100 SXM data-sheet peaks (FP32 outside the tensor cores; HBM3)
+# H100 SXM data-sheet peaks (FP32 outside the tensor cores, dense TF32 on
+# them; HBM3)
 PEAK_FP32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES_PER_S = 3.35e12
-# shared memory: 128 B per clock per SM, 132 SMs at the 1.98 GHz boost clock
-SMEM_BYTES_PER_S = 128 * 132 * 1.98e9
 
 N_FULL = 30          # full width: 2 x 4 GiB float32 planes
 N_CHECK = 14         # engine vs dense complex128 reference
@@ -215,19 +215,26 @@ def main() -> int:
             log(f"built {name} in {time.perf_counter() - t:.2f}s, cache hit: "
                 f"{out is None}")
             for line in (out or "").splitlines():
-                if "registers" in line or "spill" in line:
+                if any(w in line for w in ("entry function", "registers",
+                                           "spill")):
                     log(f"  ptxas: {line.strip()}")
 
     with Phase("2 kernel vs plain"):
-        for d in (16, 128):
+        for d in (32, 64, 128):  # d <= 32: FFMA; d >= 64: 3xTF32
             for rows in (1, 3, 1 << 14, 1 << 20):
                 re, im = random_planes(rows * d, seed=rows + d)
                 wt = random_window(d, seed=d)
+                tc0 = sk.slab_matmul.tensor_core_launches
                 err, rel = kernel_vs_plain(sk.slab_matmul,
                                            sk.slab_matmul_plain, re, im, *wt)
+                tc = sk.slab_matmul.tensor_core_launches - tc0
                 log(f"slab_matmul d={d} rows={rows}: max abs err {err:.3e}, "
                     f"rel {rel:.3e} (tol {KERNEL_RTOL} x max|plain|), "
-                    f"launches so far {sk.slab_matmul.launches}")
+                    f"tensor cores {bool(tc)}, launches so far "
+                    f"{sk.slab_matmul.launches}")
+                if tc != (d >= 64):
+                    raise AssertionError(f"slab_matmul d={d} ran the "
+                                         f"{'3xTF32' if tc else 'FFMA'} path")
         del re, im, wt  # phase 4 reads the peak memory of the engine alone
 
     with Phase("2b gate kernels vs plain"):
@@ -326,6 +333,7 @@ def main() -> int:
     main = {}
     torch.cuda.reset_peak_memory_stats()
     sk.slab_matmul.launches = 0
+    sk.slab_matmul.tensor_core_launches = 0
     with Phase(f"4 main path N={N_FULL}"):
         for label, chain in chains:
             sv = FastStatevector(N_FULL, device="cuda")  # identity layout
@@ -352,13 +360,18 @@ def main() -> int:
                 raise AssertionError(f"|norm_sq - 1| = {norm_err} >= 1e-3")
             del sv
     main_launches = sk.slab_matmul.launches
+    main_tc_launches = sk.slab_matmul.tensor_core_launches
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
-    log(f"main path: slab_matmul launches {main_launches}, "
-        f"max_memory_allocated {peak_gib:.2f} GiB")
+    log(f"main path: slab_matmul launches {main_launches} (3xTF32 tensor "
+        f"cores {main_tc_launches}), max_memory_allocated {peak_gib:.2f} GiB")
     print(json.dumps({"main_path": main, "n_qubits": N_FULL,
                       "max_memory_allocated_gib": peak_gib}), flush=True)
     if main_launches < 1:
         raise AssertionError("the main path launched no slab_matmul kernel")
+    if main_tc_launches != main_launches:
+        raise AssertionError(f"only {main_tc_launches} of the main path's "
+                             f"{main_launches} d=128 windows ran on the "
+                             f"tensor cores")
 
     # -- the chain-mode path at full width ---------------------------------
     # circuit c (at N = 30): 24 random rotations on qubits 14..22 (bits
@@ -484,7 +497,10 @@ def main() -> int:
         err, rel = kernel_vs_plain(sk.slab_matmul, sk.slab_matmul_plain,
                                    re, im, wt_re, wt_im)
         log(f"slab_matmul at N={N_FULL}: max abs err {err:.3e}, rel {rel:.3e}")
+        tc0 = sk.slab_matmul.tensor_core_launches
         ms = cuda_ms(lambda: sk.slab_matmul(re, im, wt_re, wt_im), 5)
+        if sk.slab_matmul.tensor_core_launches - tc0 != 6:
+            raise AssertionError("slab_matmul at d=128 left the tensor cores")
         plain_ms = cuda_ms(lambda: sk.slab_matmul_plain(re, im, wt_re, wt_im), 3)
         swap = fast_sv._block_swap_plan(N_FULL, 7)[0]
         swap_ms = cuda_ms(lambda: fast_sv._permute_copy(re, *swap), 3)
@@ -495,13 +511,16 @@ def main() -> int:
         wtc = torch.complex(wt_re, wt_im)
         library_ms = cuda_ms(lambda: torch.matmul(xc, wtc), 3)
         del xc
+        # 3xTF32: three TF32 products of the (R, 2d) x (2d, 2d) real GEMM
         bytes_ms = (4 * n * 4 + 2 * d * d * 4) / PEAK_BYTES_PER_S * 1e3
-        ops_ms = 8 * rows * d * d / PEAK_FP32_FLOPS * 1e3
+        ops_ms = 3 * 8 * rows * d * d / PEAK_TF32_FLOPS * 1e3
+        ffma_ms = 8 * rows * d * d / PEAK_FP32_FLOPS * 1e3
         bound_ms = max(bytes_ms, ops_ms)
         log(f"slab_matmul per window: {ms:.3f} ms; bound {bound_ms:.3f} ms "
-            f"(bytes {bytes_ms:.3f}, FP32 operations {ops_ms:.3f}); plain "
-            f"{plain_ms:.3f} ms; library (one complex64 torch.matmul) "
-            f"{library_ms:.3f} ms")
+            f"(3xTF32 operations {ops_ms:.3f}, bytes {bytes_ms:.3f}; the "
+            f"same product on FP32 FFMA {ffma_ms:.3f}); plain {plain_ms:.3f} "
+            f"ms; library (one complex64 torch.matmul) {library_ms:.3f} ms, "
+            f"{library_ms / ms:.2f}x the kernel's time")
 
     kernels = [{
         "name": "slab_matmul", "route": "cuda",
@@ -520,6 +539,8 @@ def main() -> int:
         u1, u2 = random_unitary(2, rng), random_unitary(4, rng)
         us = np.stack([random_unitary(2, rng) for _ in range(k)])
         bits = tuple(range(15, 6, -1)) * 2 + tuple(range(7, 13))
+        # the chain kernel applies one composed mix per distinct bit
+        n_mix = len(set(bits))
         # (name, kernel, plain, source, replaces, args at the path's shape,
         #  bound, library operator (mat, lo, w), args also timed)
         cases = (
@@ -534,7 +555,7 @@ def main() -> int:
              (u2, N_FULL - q0 - 2, 2), None),
             ("apply_1q_chain", gk.apply_1q_chain, gk.apply_1q_chain_plain,
              "chain_mix.cu", "pallas_kernels.py:219", (us, bits, N_FULL),
-             bound(plane_bytes + 36 * k, k * (n // 2) * 32),
+             bound(plane_bytes + 36 * k, n_mix * (n // 2) * 32),
              chain_operator(us, bits), None))
         for (name, kernel, plain, src, replaces, args, (b_ms, b_by), lib,
              also) in cases:
@@ -560,8 +581,8 @@ def main() -> int:
                                      f"with the kernel: {lib_err:.3e}")
             lib_ms = cuda_ms(lambda: call(xc), 3)
             del xc, call
-            smem_ms = (k * 2 * n * 4 * 2) / SMEM_BYTES_PER_S * 1e3 \
-                if kernel is gk.apply_1q_chain else None
+            gates_ms = (k * (n // 2) * 32 / PEAK_FP32_FLOPS * 1e3
+                        if kernel is gk.apply_1q_chain else None)
             log(f"{name} at N={N_FULL}, args {args[1:]}: max abs err "
                 f"{k_err:.3e}, rel {k_rel:.3e}; {k_ms:.3f} ms per launch"
                 + (f" ({also_ms:.3f} ms at args {also[1:]})"
@@ -570,8 +591,9 @@ def main() -> int:
                 f"ms; library (one complex64 torch.matmul, (2^{lib[2]})^2 "
                 f"operator on bits {lib[1]}..{lib[1] + lib[2] - 1}) "
                 f"{lib_ms:.3f} ms, max abs diff to the kernel {lib_err:.3e}"
-                + (f"; shared-memory round trip per gate, {k} gates: "
-                   f"{smem_ms:.3f} ms" if smem_ms is not None else ""))
+                + (f"; bound from {n_mix} composed mixes; the {k} gates one "
+                   f"by one would be {gates_ms:.3f} ms of FP32 operations"
+                   if gates_ms is not None else ""))
             kernels.append({
                 "name": name, "route": "cuda",
                 "source": f"quantum_computations_tpu_torch/ops/csrc/{src}",

@@ -446,7 +446,11 @@ class FastStatevector:
     def load_numpy(self, re: np.ndarray, im: np.ndarray, axis_of) -> \
             "FastStatevector":
         """Take planes (in physical order) and their layout table, e.g. from
-        the JAX engine's ``re``, ``im`` and ``axis_of``. Returns self."""
+        the JAX engine's ``re``, ``im`` and ``axis_of``. Returns self.
+
+        Only slab mode keeps a lazy layout; in window and chain mode each
+        plane is brought to the identity layout on the host (one numpy
+        transpose) before upload."""
         n = 1 << self.N
         re = np.asarray(re, np.float32).reshape(-1)
         im = np.asarray(im, np.float32).reshape(-1)
@@ -456,6 +460,11 @@ class FastStatevector:
         axis_of = [int(a) for a in axis_of]
         if sorted(axis_of) != list(range(self.N)):
             raise ValueError(f"axis_of must be a permutation of 0..{self.N - 1}")
+        if self.fusion_mode != "slab" and axis_of != list(range(self.N)):
+            re, im = (np.ascontiguousarray(
+                x.reshape((2,) * self.N).transpose(axis_of)).reshape(-1)
+                for x in (re, im))
+            axis_of = list(range(self.N))
         self.re = self.im = None  # free the old planes first
         self.re = torch.from_numpy(re.copy()).to(self.device)
         self.im = torch.from_numpy(im.copy()).to(self.device)
@@ -539,6 +548,8 @@ class FastStatevector:
         or one planned step at a time (chain). Returns self."""
         if self.fusion_mode == "chain":
             return self._run_chain(gates)
+        if self.fusion_mode == "window":
+            self._require_identity_layout()
         for u, tgts in self._windows(gates):
             if self.fusion_mode == "slab":
                 self._apply_slab_window(u, tgts)
@@ -553,6 +564,7 @@ class FastStatevector:
         place), its plain version on the CPU. A single-qubit general step
         runs the ``apply_1q`` kernel, which has no lane rule on the GPU;
         the plan itself stays the JAX engine's."""
+        self._require_identity_layout()
         for plan in self._plan(gates):
             if plan.kind == "chain":
                 self.re, self.im = gate_kernels.apply_1q_chain(
@@ -657,6 +669,13 @@ class FastStatevector:
 
     def _layout_is_identity(self) -> bool:
         return self.axis_of == list(range(self.N))
+
+    def _require_identity_layout(self):
+        """Window and chain mode apply each gate to the axis of its logical
+        index, so they refuse a state whose layout is not the identity."""
+        if not self._layout_is_identity():
+            raise ValueError(f"fusion_mode={self.fusion_mode!r} needs the "
+                             f"identity layout, got axis_of={self.axis_of}")
 
     # -- readout ---------------------------------------------------------
     def _p(self) -> torch.Tensor:

@@ -4,43 +4,54 @@
 // quantum_computations_tpu/ops/pallas_kernels.py (kernel :219, wrapper
 // :310, pallas_call :344, outputs aliased onto the inputs with `donate`).
 //
-// Applies k <= 24 complex 2x2 mixes, gate g on AMPLITUDE bit bits[g]
-// (LSB = 0; bits may repeat; chain order), to the split-real planes re, im
-// (2^N float32 each) in ONE pass over device memory.
+// A chain is k <= 24 complex 2x2 gates on AMPLITUDE bits (LSB = 0; bits may
+// repeat; chain order). Gates on different bits commute, so the Python
+// wrapper composes them per bit in float64 on the host
+// (`gate_kernels.compose_chain`): this kernel applies one mix per distinct
+// bit, at most 13, to the split-real planes re, im (2^N float32 each) in
+// ONE pass over device memory.
 //
-// Bound on an H100 SXM at N = 30, for a 24-gate chain: both planes read and
-// written once, 16 GiB, 5.13 ms at 3.35 TB/s; 24 x 2^29 pairs x 32 FP32
-// operations = 4.1e11, 6.15 ms at 67 TFLOP/s. So it is bound by operations
-// at k = 24 and by bytes below k ~ 20. This design also moves every
-// amplitude through shared memory once per gate (read and write, both
-// planes): 24 x 16 GiB, about 12.3 ms at the SMs' 128 B/clock x 132 SMs at
-// 1.98 GHz (33.5 TB/s), so its own bound at k = 24 is that round trip.
+// Bound on an H100 SXM at N = 30, for the 24-gate chain on the 9 bits
+// 7..15: both planes read and written once, 16 GiB, 5.13 ms at 3.35 TB/s;
+// 9 mixes x 2^29 pairs x 32 FP32 operations = 1.55e11, 2.3 ms at
+// 67 TFLOP/s. So the composed chain is bound by bytes. (The 24 gates one by
+// one would be 4.1e11 operations, 6.15 ms, the bound of the first design,
+// which also moved every amplitude through shared memory once per gate.)
 //
-// Design against those bounds:
-// - The TPU block is (32, 2048) float32 per plane, 512 KB for both planes:
-//   more than the 227 KB of shared memory an H100 block may use. So the
-//   tile here is chosen per chain: the distinct chain bits plus the lowest
-//   other bits, 2^13 amplitudes per plane (64 KB for both planes, three
-//   blocks per SM), clamped to 2^N. Its low bits that are amplitude bits
-//   0..low-1 make coalesced runs of 2^low floats.
-// - One block owns one value of every bit outside the tile: it loads its
-//   tile of both planes into shared memory, applies the gates in chain
-//   order with a __syncthreads() between gates, and writes the tile back
-//   to the same addresses. No two blocks share an amplitude, which makes
-//   the update in place safe.
-// - The gates (8 floats each) and the bit maps travel by value in the
-//   kernel's parameter block (about 1.1 KB of the 4 KB limit); the gate
-//   loop is unrolled, so every gate's coefficients are constant-bank
-//   operands of the FFMAs. No host-to-device copy per chain.
-// - Keeping several gates' amplitudes in registers between syncs, to cut
-//   the shared-memory round trips, is later work.
+// Design against that bound:
+// - The tile (`gate_kernels.chain_tile`) is the distinct chain bits plus the
+//   lowest other bits, 2^13 amplitudes per plane (64 KB for both planes),
+//   clamped to 2^N. One block owns one value of every bit outside it: no
+//   two blocks share an amplitude, which makes the update in place safe.
+// - A thread keeps 2^5 amplitudes of each plane in registers, spanning 5 of
+//   the tile's bits; its thread index spans the others. Stage s applies the
+//   mixes of its register bits in registers (`gate_kernels.chain_plan`
+//   picks the bits). The first stage loads from device memory, the last
+//   stores; between two stages the tile goes once through shared memory
+//   (a barrier, then a read in the next stage's layout). Nine chain bits
+//   take two stages: one shared-memory round trip and two barriers per
+//   tile, where the first design had 24.
+// - The lanes of a warp span the tile's lowest bits, amplitude bits 0..3 at
+//   N = 30: runs of 64 B, every sector used. Shared-memory slots are
+//   swizzled (bit 4 ^= parity of bits >= 5) so that such lanes hit 32
+//   banks in both layouts.
+// - Every offset is computed once: the host gives each register index's
+//   offset (device memory and shared memory) and each thread bit's
+//   position; a thread forms its own part once per layout, and the
+//   unrolled register loops add constant-bank offsets.
+// - 256 threads of 2 x 32 floats each (128 registers a thread) and 64 KB
+//   of shared memory per block: two blocks per SM, each with its whole
+//   tile in flight from its loads into registers, before any mix.
+// - Mixes (8 floats each) and tables travel by value in the kernel's
+//   parameter block (about 1.7 KB of the 4 KB limit); no host-to-device
+//   copy per chain.
 //
-// C interface, bound with ctypes: qct_apply_1q_chain takes HOST arrays
-// (the Python wrapper's `chain_tile` computes the bit maps) and returns
-// cudaGetLastError() after the launch (or the error of an earlier runtime
-// call, or cudaErrorInvalidValue for arguments out of range), 0 on success.
-// It launches on the caller's stream, allocates nothing and never
-// synchronises.
+// C interface, bound with ctypes: qct_apply_1q_chain takes HOST arrays in
+// the fixed sizes of struct Plan below (the Python wrapper fills them from
+// `chain_plan`) and returns cudaGetLastError() after the launch (or the
+// error of an earlier runtime call, or cudaErrorInvalidValue for arguments
+// out of range), 0 on success. It launches on the caller's stream,
+// allocates nothing and never synchronises.
 
 #include <cuda_runtime.h>
 
@@ -48,110 +59,188 @@
 
 namespace {
 
-constexpr int kThreads = 512;
-constexpr int kMaxGates = 24;
+constexpr int kRegBits = 5;  // amplitudes per plane per thread: 2^5
+constexpr int kRegs = 1 << kRegBits;
 constexpr int kMaxTileBits = 13;
+constexpr int kMaxThreadBits = kMaxTileBits - kRegBits;
+constexpr int kMaxStages = 3;
 constexpr int kMaxOtherBits = 30;  // grid of 2^n_other blocks
 
-struct Chain {
-  float u[kMaxGates][8];  // re[2][2] then im[2][2], row-major
-  int local[kMaxGates];   // gate g's bit inside the tile
-  int high[kMaxTileBits]; // tile bit low + j is amplitude bit high[j]
-  int other[kMaxOtherBits];  // block index bit j is amplitude bit other[j]
-  int k, low, n_high, n_other;
+struct Plan {
+  float mix[kMaxStages][kRegBits][8];  // re[2][2] then im[2][2], row-major
+  long long greg[2][kRegs];        // first/last stage: amplitude offset of
+                                   // register index i
+  int sreg[kMaxStages][kRegs];     // swizzled tile offset of register i
+  int gthr[2][kMaxThreadBits];     // first/last stage: amplitude bit of
+                                   // thread bit j
+  int sthr[kMaxStages][kMaxThreadBits];  // tile bit of thread bit j
+  int other[kMaxOtherBits];        // block index bit j is amplitude bit
+  int mask[kMaxStages];            // register slot q of stage s has a mix
+  int n_stages, thread_bits, n_other;
 };
 
-__device__ __forceinline__ int64_t tile_offset(const Chain& c, int l,
-                                               int64_t base) {
-  int64_t off = base | (l & ((1 << c.low) - 1));
+__device__ __forceinline__ int swizzle(int local) {
+  return local ^ ((__popc(local >> 5) & 1) << 4);
+}
+
+// The thread's part of a tile index (or amplitude offset): thread bit j
+// set contributes bit pos[j].
+template <typename T>
+__device__ __forceinline__ T thread_part(const int* pos, int n, int tid) {
+  T off = 0;
 #pragma unroll
-  for (int j = 0; j < kMaxTileBits; ++j)
-    if (j < c.n_high) off |= (int64_t)((l >> (c.low + j)) & 1) << c.high[j];
+  for (int j = 0; j < kMaxThreadBits; ++j)
+    if (j < n) off |= (T)((tid >> j) & 1) << pos[j];
   return off;
 }
 
-__global__ void __launch_bounds__(kThreads)
+// The mixes of stage S on the thread's registers: register slot q is one
+// tile bit, so the pairs of slot q are (i, i | 1 << q).
+template <int RB, int S>
+__device__ __forceinline__ void mix_stage(float (&ar)[1 << RB],
+                                          float (&ai)[1 << RB],
+                                          const Plan& p) {
+#pragma unroll
+  for (int q = 0; q < RB; ++q) {
+    if (!((p.mask[S] >> q) & 1)) continue;  // uniform across the block
+    const float* u = p.mix[S][q];
+#pragma unroll
+    for (int i = 0; i < (1 << RB); ++i) {
+      if (i & (1 << q)) continue;
+      const int k = i | (1 << q);
+      const float xr = ar[i], xi = ai[i], yr = ar[k], yi = ai[k];
+      ar[i] = fmaf(u[0], xr, fmaf(-u[4], xi, fmaf(u[1], yr, -u[5] * yi)));
+      ai[i] = fmaf(u[0], xi, fmaf(u[4], xr, fmaf(u[1], yi, u[5] * yr)));
+      ar[k] = fmaf(u[2], xr, fmaf(-u[6], xi, fmaf(u[3], yr, -u[7] * yi)));
+      ai[k] = fmaf(u[2], xi, fmaf(u[6], xr, fmaf(u[3], yi, u[7] * yr)));
+    }
+  }
+}
+
+// Stage S > 0: the registers go to shared memory in stage S - 1's layout
+// and come back in stage S's, then stage S's mixes.
+template <int RB, int S>
+__device__ __forceinline__ void exchange(float (&ar)[1 << RB],
+                                         float (&ai)[1 << RB], float* s_re,
+                                         float* s_im, const Plan& p,
+                                         int tid) {
+  if (S > 1) __syncthreads();  // stage S - 1's shared reads are done
+  int st = swizzle(thread_part<int>(p.sthr[S - 1], p.thread_bits, tid));
+#pragma unroll
+  for (int i = 0; i < (1 << RB); ++i) {
+    s_re[st ^ p.sreg[S - 1][i]] = ar[i];
+    s_im[st ^ p.sreg[S - 1][i]] = ai[i];
+  }
+  __syncthreads();  // the whole tile is in shared memory
+  st = swizzle(thread_part<int>(p.sthr[S], p.thread_bits, tid));
+#pragma unroll
+  for (int i = 0; i < (1 << RB); ++i) {
+    ar[i] = s_re[st ^ p.sreg[S][i]];
+    ai[i] = s_im[st ^ p.sreg[S][i]];
+  }
+  mix_stage<RB, S>(ar, ai, p);
+}
+
+template <int RB>
+__global__ void __launch_bounds__(1 << kMaxThreadBits, 2)
 chain_kernel(float* __restrict__ re, float* __restrict__ im,
-             const __grid_constant__ Chain c) {
+             const __grid_constant__ Plan p) {
   extern __shared__ __align__(16) float smem[];
-  const int size = 1 << (c.low + c.n_high);
   float* s_re = smem;
-  float* s_im = smem + size;
+  float* s_im = smem + (1 << (p.thread_bits + RB));
+  const int tid = threadIdx.x;
 
   int64_t base = 0;
 #pragma unroll
   for (int j = 0; j < kMaxOtherBits; ++j)
-    if (j < c.n_other) base |= (int64_t)((blockIdx.x >> j) & 1) << c.other[j];
+    if (j < p.n_other) base |= (int64_t)((blockIdx.x >> j) & 1) << p.other[j];
 
-  for (int l = threadIdx.x; l < size; l += kThreads) {
-    const int64_t off = tile_offset(c, l, base);
-    s_re[l] = re[off];
-    s_im[l] = im[off];
-  }
-  __syncthreads();  // the whole tile is staged before any gate
-
-  const int pairs = size >> 1;
+  float ar[1 << RB], ai[1 << RB];
+  const int64_t in = base | thread_part<int64_t>(p.gthr[0], p.thread_bits, tid);
 #pragma unroll
-  for (int g = 0; g < kMaxGates; ++g) {
-    if (g >= c.k) break;  // uniform across the block
-    const int lb = c.local[g];
-    const int lo_mask = (1 << lb) - 1;
-    const float* u = c.u[g];
-    for (int p = threadIdx.x; p < pairs; p += kThreads) {
-      const int i0 = ((p >> lb) << (lb + 1)) | (p & lo_mask);
-      const int i1 = i0 | (1 << lb);
-      const float ar = s_re[i0], ai = s_im[i0];
-      const float br = s_re[i1], bi = s_im[i1];
-      s_re[i0] = fmaf(u[0], ar, fmaf(-u[4], ai, fmaf(u[1], br, -u[5] * bi)));
-      s_im[i0] = fmaf(u[0], ai, fmaf(u[4], ar, fmaf(u[1], bi, u[5] * br)));
-      s_re[i1] = fmaf(u[2], ar, fmaf(-u[6], ai, fmaf(u[3], br, -u[7] * bi)));
-      s_im[i1] = fmaf(u[2], ai, fmaf(u[6], ar, fmaf(u[3], bi, u[7] * br)));
-    }
-    __syncthreads();  // gate g is done everywhere before gate g + 1
+  for (int i = 0; i < (1 << RB); ++i) {
+    ar[i] = re[in + p.greg[0][i]];
+    ai[i] = im[in + p.greg[0][i]];
   }
+  mix_stage<RB, 0>(ar, ai, p);
+  if (p.n_stages > 1) exchange<RB, 1>(ar, ai, s_re, s_im, p, tid);
+  if (p.n_stages > 2) exchange<RB, 2>(ar, ai, s_re, s_im, p, tid);
 
-  for (int l = threadIdx.x; l < size; l += kThreads) {
-    const int64_t off = tile_offset(c, l, base);
-    re[off] = s_re[l];
-    im[off] = s_im[l];
+  const int64_t out = base | thread_part<int64_t>(p.gthr[1], p.thread_bits, tid);
+#pragma unroll
+  for (int i = 0; i < (1 << RB); ++i) {
+    re[out + p.greg[1][i]] = ar[i];
+    im[out + p.greg[1][i]] = ai[i];
   }
+}
+
+template <int RB>
+cudaError_t launch(float* re, float* im, const Plan& p, cudaStream_t stream) {
+  const int smem = p.n_stages > 1
+                       ? 2 * (1 << (p.thread_bits + RB)) * (int)sizeof(float)
+                       : 0;
+  cudaError_t err = cudaFuncSetAttribute(
+      chain_kernel<RB>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  chain_kernel<RB><<<1u << p.n_other, 1 << p.thread_bits, smem, stream>>>(
+      re, im, p);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-extern "C" int qct_apply_1q_chain(float* re, float* im, const float* us,
-                                  const int* local, int k, const int* high,
-                                  int n_high, int low, const int* other,
+extern "C" int qct_apply_1q_chain(float* re, float* im, const float* mix,
+                                  const long long* greg, const int* sreg,
+                                  const int* gthr, const int* sthr,
+                                  const int* mask, int n_stages, int reg_bits,
+                                  int thread_bits, const int* other,
                                   int n_other, void* stream) {
-  const int tile_bits = low + n_high;
-  if (!re || !im || !us || !local || !high || !other || k < 1 ||
-      k > kMaxGates || n_high < 0 || low < 0 || tile_bits < 1 ||
-      tile_bits > kMaxTileBits || n_other < 0 || n_other > kMaxOtherBits)
+  const int tile_bits = reg_bits + thread_bits;
+  if (!re || !im || !mix || !greg || !sreg || !gthr || !sthr || !mask ||
+      !other || n_stages < 1 || n_stages > kMaxStages || reg_bits < 1 ||
+      reg_bits > kRegBits || thread_bits < 0 ||
+      tile_bits > kMaxTileBits || n_other < 0 || n_other > kMaxOtherBits ||
+      (reg_bits < kRegBits && thread_bits > 0))
     return (int)cudaErrorInvalidValue;
-  Chain c;
-  c.k = k;
-  c.low = low;
-  c.n_high = n_high;
-  c.n_other = n_other;
-  for (int g = 0; g < k; ++g) {
-    if (local[g] < 0 || local[g] >= tile_bits)
-      return (int)cudaErrorInvalidValue;
-    c.local[g] = local[g];
-    for (int j = 0; j < 8; ++j) c.u[g][j] = us[8 * g + j];
+  Plan p;
+  p.n_stages = n_stages;
+  p.thread_bits = thread_bits;
+  p.n_other = n_other;
+  for (int s = 0; s < kMaxStages; ++s) {
+    p.mask[s] = s < n_stages ? mask[s] : 0;
+    for (int q = 0; q < kRegBits; ++q)
+      for (int c = 0; c < 8; ++c)
+        p.mix[s][q][c] = mix[(s * kRegBits + q) * 8 + c];
+    for (int i = 0; i < kRegs; ++i) {
+      p.sreg[s][i] = sreg[s * kRegs + i];
+      if (p.sreg[s][i] < 0 || p.sreg[s][i] >= (1 << tile_bits))
+        return (int)cudaErrorInvalidValue;
+    }
+    for (int j = 0; j < kMaxThreadBits; ++j) {
+      p.sthr[s][j] = sthr[s * kMaxThreadBits + j];
+      if (p.sthr[s][j] < 0 || p.sthr[s][j] >= tile_bits)
+        return (int)cudaErrorInvalidValue;
+    }
   }
-  for (int g = k; g < kMaxGates; ++g) {
-    c.local[g] = 0;
-    for (int j = 0; j < 8; ++j) c.u[g][j] = 0.f;
+  for (int s = 0; s < 2; ++s) {
+    for (int i = 0; i < kRegs; ++i) p.greg[s][i] = greg[s * kRegs + i];
+    for (int j = 0; j < kMaxThreadBits; ++j) {
+      p.gthr[s][j] = gthr[s * kMaxThreadBits + j];
+      if (p.gthr[s][j] < 0 || p.gthr[s][j] > 62)
+        return (int)cudaErrorInvalidValue;
+    }
   }
-  for (int j = 0; j < kMaxTileBits; ++j) c.high[j] = j < n_high ? high[j] : 0;
-  for (int j = 0; j < kMaxOtherBits; ++j)
-    c.other[j] = j < n_other ? other[j] : 0;
+  for (int j = 0; j < kMaxOtherBits; ++j) {
+    p.other[j] = j < n_other ? other[j] : 0;
+    if (p.other[j] < 0 || p.other[j] > 62) return (int)cudaErrorInvalidValue;
+  }
 
-  const int smem = 2 * (1 << tile_bits) * (int)sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      chain_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  chain_kernel<<<1u << n_other, kThreads, smem,
-                 static_cast<cudaStream_t>(stream)>>>(re, im, c);
-  return (int)cudaGetLastError();
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (reg_bits) {
+    case 1: return (int)launch<1>(re, im, p, s);
+    case 2: return (int)launch<2>(re, im, p, s);
+    case 3: return (int)launch<3>(re, im, p, s);
+    case 4: return (int)launch<4>(re, im, p, s);
+    default: return (int)launch<5>(re, im, p, s);
+  }
 }

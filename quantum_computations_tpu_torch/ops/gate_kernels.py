@@ -7,7 +7,9 @@ Three wrapper/plain pairs over split-real float32 planes of length 2^N:
 - :func:`apply_2q_adjacent` — a 4x4 complex mix of the pair (q, q+1)
   (``csrc/gate_mix.cu``);
 - :func:`apply_1q_chain` — up to 24 single-qubit mixes on AMPLITUDE bits in
-  one pass over the state (``csrc/chain_mix.cu``).
+  one pass over the state (``csrc/chain_mix.cu``): the wrapper composes
+  them per bit (:func:`compose_chain`) and the kernel applies one mix per
+  distinct bit, with the amplitudes in registers (:func:`chain_plan`).
 
 Qubits are big-endian (qubit q is amplitude bit N - q - 1); the chain takes
 amplitude bits (LSB = 0), as the JAX kernel does. On CUDA tensors each
@@ -30,11 +32,14 @@ from ..config import full_fp32_matmul
 
 __all__ = ["apply_1q", "apply_1q_plain", "apply_2q_adjacent",
            "apply_2q_adjacent_plain", "apply_1q_chain",
-           "apply_1q_chain_plain", "fusable_bits", "chain_tile"]
+           "apply_1q_chain_plain", "fusable_bits", "chain_tile",
+           "compose_chain", "chain_plan"]
 
 _LANE_MIN_BITS = 7   # the planner's rule, copied from the JAX package
 _MAX_CHAIN_LEN = 24  # gates in one chain (the kernel's parameter block)
 CHAIN_TILE_BITS = 13  # amplitudes per plane in one chain tile: 2^13 (32 KiB)
+CHAIN_REG_BITS = 5   # amplitudes per plane a chain thread holds: 2^5
+_MAX_STAGES = 3      # ceil(CHAIN_TILE_BITS / CHAIN_REG_BITS) register stages
 
 
 def fusable_bits(num_qubits: int, c_bits: int = 11, block_rows: int = 32):
@@ -80,6 +85,80 @@ def chain_tile(bits, num_qubits: int):
     pos = {b: i for i, b in enumerate(tile)}
     other = [b for b in range(N) if b not in pos]
     return low, tile[low:], other, [pos[b] for b in bits]
+
+
+def compose_chain(us, bits):
+    """Compose a chain per bit: single-qubit gates on different bits
+    commute, and gates on one bit compose in chain order (a later gate on
+    the left), in float64 on the host. Returns ``(distinct, mixes)``: the
+    distinct bits in order of first appearance and their (m, 2, 2)
+    complex128 products."""
+    distinct = tuple(dict.fromkeys(int(b) for b in bits))
+    mats = {b: np.eye(2, dtype=np.complex128) for b in distinct}
+    for u, b in zip(us, bits):
+        mats[int(b)] = np.asarray(u, np.complex128) @ mats[int(b)]
+    return distinct, np.stack([mats[b] for b in distinct])
+
+
+def _swizzle(local: int) -> int:
+    """Shared-memory slot of tile index ``local``: bit 4 flipped by the
+    parity of bits 5 and up, so that the 32 lanes of a warp hit 32 banks
+    when they span tile bits 0..3 and any one higher bit. It is linear
+    over XOR, so a thread's part and a register's part swizzle apart."""
+    return local ^ ((bin(local >> 5).count("1") & 1) << 4)
+
+
+def chain_plan(bits: tuple, num_qubits: int) -> dict:
+    """The chain kernel's tables for DISTINCT amplitude ``bits`` (each
+    with one composed mix, in this order).
+
+    The tile is :func:`chain_tile`'s. A thread holds 2^rb amplitudes of
+    each plane, rb = min(CHAIN_REG_BITS, tile bits): its register index
+    spans rb tile bits, its thread index the others (ascending, so that
+    the lanes span the lowest, contiguous ones). Stage s puts the tile bits
+    ``regs[s]`` in registers and applies the mixes of the chain bits among
+    them; the highest chain bits go first, and a stage with fewer chain
+    bits than rb is padded with the highest other tile bits. The first
+    stage loads from device memory, the last stores, and between two
+    stages the tile goes once through shared memory.
+
+    Returns the kernel's tables: ``regs``, ``mix_slot`` (stage and
+    register slot of each bit's mix), ``greg``/``gthr`` (the amplitude
+    offset of each register index, and the amplitude bit of each thread
+    bit, for the first and last stage), ``sreg``/``sthr`` (the swizzled
+    tile offset of each register index, and the tile bit of each thread
+    bit, per stage), ``other``, ``tile_bits``, ``reg_bits`` and
+    ``thread_bits``.
+    """
+    N = int(num_qubits)
+    if len(set(bits)) != len(bits):
+        raise ValueError(f"chain_plan takes distinct bits, got {bits}")
+    low, high, other, local = chain_tile(bits, N)
+    T = low + len(high)
+    amp = list(range(low)) + list(high)  # tile bit -> amplitude bit
+    rb = min(CHAIN_REG_BITS, T)
+    todo = sorted(local, reverse=True)
+    regs, mix_slot = [], {}
+    while todo:
+        chosen, todo = todo[:rb], todo[rb:]
+        pad = [b for b in range(T - 1, -1, -1) if b not in chosen]
+        regs.append(chosen + pad[:rb - len(chosen)])
+        for slot, b in enumerate(chosen):
+            mix_slot[b] = (len(regs) - 1, slot)
+    threads = [[b for b in range(T) if b not in r] for r in regs]
+
+    def offsets(r, weight):
+        return [sum(weight(r[p]) for p in range(rb) if i >> p & 1)
+                for i in range(1 << rb)]
+
+    return dict(
+        regs=regs, mix_slot=[mix_slot[b] for b in local], other=other,
+        tile_bits=T, reg_bits=rb, thread_bits=T - rb,
+        greg=[offsets(regs[s], lambda b: 1 << amp[b]) for s in (0, -1)],
+        gthr=[[amp[b] for b in threads[s]] for s in (0, -1)],
+        sreg=[[_swizzle(o) for o in offsets(r, lambda b: 1 << b)]
+              for r in regs],
+        sthr=threads)
 
 
 # -- checks ----------------------------------------------------------------
@@ -160,11 +239,32 @@ def _gate_mix():
 @functools.cache
 def _chain_mix():
     fn = _build.load("chain_mix").qct_apply_1q_chain
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int]
-                   + [ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
+    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 3
                    + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
+
+
+def _padded(rows, width: int, n_rows: int, ctype=ctypes.c_int):
+    """``rows`` as one flat C array of ``n_rows`` rows of ``width``,
+    zero-padded: the kernel's parameter block has fixed-size tables."""
+    flat = [0] * (width * n_rows)
+    for i, row in enumerate(rows):
+        flat[i * width:i * width + len(row)] = [int(v) for v in row]
+    return (ctype * len(flat))(*flat)
+
+
+@functools.lru_cache(maxsize=256)
+def _chain_tables(bits: tuple, num_qubits: int):
+    """``chain_plan``'s integer tables as the C arrays the kernel takes."""
+    plan = chain_plan(bits, num_qubits)
+    regs, thr = 1 << CHAIN_REG_BITS, CHAIN_TILE_BITS - CHAIN_REG_BITS
+    return (plan,
+            _padded(plan["greg"], regs, 2, ctypes.c_longlong),
+            _padded(plan["sreg"], regs, _MAX_STAGES),
+            _padded(plan["gthr"], thr, 2),
+            _padded(plan["sthr"], thr, _MAX_STAGES),
+            _ints(plan["other"]))
 
 
 # -- apply_1q --------------------------------------------------------------
@@ -270,21 +370,29 @@ def apply_1q_chain(re: torch.Tensor, im: torch.Tensor, us, bits,
     (LSB = 0; repeats allowed; applied in chain order) in ONE pass.
 
     At most 24 gates, on at most ``min(CHAIN_TILE_BITS, N)`` distinct bits
-    (:func:`chain_tile`); any bit position. CUDA: the Hopper kernel, in
-    place. CPU: :func:`apply_1q_chain_plain`.
+    (:func:`chain_tile`); any bit position. CUDA: the gates composed per bit
+    (:func:`compose_chain`), then the Hopper kernel, in place. CPU:
+    :func:`apply_1q_chain_plain`.
     """
     g, bits = _chain_gates(us, bits)
     _check_planes(re, im, num_qubits)
     if len(bits) > _MAX_CHAIN_LEN:
         raise ValueError(f"a chain holds at most {_MAX_CHAIN_LEN} gates, got "
                          f"{len(bits)}")
-    low, high, other, local = chain_tile(bits, num_qubits)
+    chain_tile(bits, num_qubits)  # the bits the kernel holds, either route
     if not _route("apply_1q_chain", re):
         return apply_1q_chain_plain(re, im, g, bits, num_qubits)
+    distinct, mixes = compose_chain(g, bits)
+    plan, greg, sreg, gthr, sthr, other = _chain_tables(distinct, num_qubits)
+    mix = np.zeros((_MAX_STAGES, CHAIN_REG_BITS, 8), np.float32)
+    mask = [0] * _MAX_STAGES
+    for m, (stage, slot) in zip(mixes, plan["mix_slot"]):
+        mix[stage, slot] = np.concatenate([m.real.ravel(), m.imag.ravel()])
+        mask[stage] |= 1 << slot
     err = _launch(_chain_mix(), re, re.data_ptr(), im.data_ptr(),
-                  _floats(*[np.stack([u.real, u.imag]) for u in g]),
-                  _ints(local), len(bits), _ints(high), len(high), low,
-                  _ints(other), len(other))
+                  _floats(mix), greg, sreg, gthr, sthr, _ints(mask),
+                  len(plan["regs"]), plan["reg_bits"], plan["thread_bits"],
+                  other, len(plan["other"]))
     _raise_on(err, "apply_1q_chain", bits=bits, num_qubits=num_qubits)
     apply_1q_chain.launches += 1
     return re, im

@@ -46,8 +46,9 @@ def _check(re, im, wt_re, wt_im) -> int:
 @functools.cache
 def _kernel():
     fn = _build.load("slab_matmul").qct_slab_matmul
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_int,
-                                           ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 4 + [
+        ctypes.c_longlong, ctypes.c_int, ctypes.POINTER(ctypes.c_int),
+        ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -72,7 +73,8 @@ def slab_matmul(re: torch.Tensor, im: torch.Tensor,
                 wt_re: torch.Tensor, wt_im: torch.Tensor):
     """Apply a slab window in place: ``(re, im) <- x @ Wt``, split-real.
 
-    On CUDA tensors this launches the Hopper kernel and returns the same
+    On CUDA tensors this launches the Hopper kernel (3xTF32 on the tensor
+    cores for d >= 64, FP32 FFMA for d <= 32) and returns the same
     ``(re, im)`` tensors, updated in place; on CPU tensors it returns
     :func:`slab_matmul_plain`'s new tensors. Any other device raises.
     """
@@ -84,15 +86,21 @@ def slab_matmul(re: torch.Tensor, im: torch.Tensor,
     if any(t.data_ptr() % 16 for t in (re, im, wt_re, wt_im)):
         raise ValueError("slab_matmul needs 16-byte aligned tensors")
     fn = _kernel()
+    path = ctypes.c_int(-1)
     with torch.cuda.device(re.device):
         stream = torch.cuda.current_stream(re.device).cuda_stream
         err = fn(re.data_ptr(), im.data_ptr(), wt_re.data_ptr(),
-                 wt_im.data_ptr(), re.numel() // d, d, stream)
+                 wt_im.data_ptr(), re.numel() // d, d, ctypes.byref(path),
+                 stream)
     if err != 0:
         raise RuntimeError(f"slab_matmul kernel launch failed: CUDA error "
                            f"{err} (d={d}, rows={re.numel() // d})")
     slab_matmul.launches += 1
+    slab_matmul.tensor_core_launches += path.value == 1
     return re, im
 
 
 slab_matmul.launches = 0  # kernel launches, counted where they happen
+# of those, launches of the 3xTF32 tensor-core kernel (d >= 64), as the C
+# dispatcher reports them; d <= 32 runs the FFMA kernel
+slab_matmul.tensor_core_launches = 0

@@ -451,6 +451,66 @@ def test_load_numpy_carries_jax_chain_state_across():
     _assert_chain_readouts(tsv, jfull)
 
 
+def _permuted_state(case):
+    """(N, re, im, axis_of, second half, JAX slab engine after it) for a
+    state in a non-identity slab layout."""
+    import jax.numpy as jnp
+
+    if case == "jax_half":
+        rng = np.random.default_rng(53)
+        N = 12
+        gates = _circuit(rng, N, 30)
+        first, second = gates[:15], gates[15:]
+        jsv = _jax_engine(N, "xla").run(first)
+        assert not jsv._layout_is_identity()
+        re, im, axis_of = np.asarray(jsv.re), np.asarray(jsv.im), \
+            list(jsv.axis_of)
+    else:  # logical axes 0 and 8 swapped at N = 16, then R(0.3) and H
+        rng = np.random.default_rng(59)
+        N = 16
+        amp = rng.normal(size=1 << N) + 1j * rng.normal(size=1 << N)
+        amp /= np.linalg.norm(amp)
+        re, im = amp.real.astype(np.float32), amp.imag.astype(np.float32)
+        axis_of = list(range(N))
+        axis_of[0], axis_of[8] = 8, 0
+        second = [(tqop.axis_rotation(0.3, np.array([1.0, 0.0, 0.0])), (8,)),
+                  (np.asarray(tgates.H(0).matrix), (0,))]
+        jsv = _jax_engine(N, "xla")
+        jsv.re, jsv.im, jsv.axis_of = jnp.asarray(re), jnp.asarray(im), \
+            list(axis_of)
+    return N, re, im, axis_of, second, jsv.run(second)
+
+
+@pytest.mark.parametrize("case", ["jax_half", "swap_0_8"])
+def test_loaded_layout_in_window_and_chain_mode(case):
+    """A state in a permuted slab layout, loaded into window and chain
+    mode, gives the JAX slab engine's and the port's slab-mode probs()."""
+    N, re, im, axis_of, second, jref = _permuted_state(case)
+    slab = _port_engine(N).load_numpy(re, im, axis_of).run(second)
+    assert not slab._layout_is_identity()
+    np.testing.assert_allclose(slab.probs().numpy(), np.asarray(jref.probs()),
+                               atol=ATOL)
+    for mode in ("chain", "window"):
+        tsv = FastStatevector(N, device="cpu", fusion_mode=mode).load_numpy(
+            re, im, axis_of)
+        assert tsv._layout_is_identity()
+        tsv.run(second)
+        np.testing.assert_allclose(tsv.probs().numpy(),
+                                   np.asarray(jref.probs()), atol=ATOL)
+        np.testing.assert_allclose(tsv.probs().numpy(), slab.probs().numpy(),
+                                   atol=ATOL)
+
+
+@pytest.mark.parametrize("mode", ["chain", "window"])
+def test_permuted_layout_outside_slab_mode_raises(mode):
+    """run() in window or chain mode refuses a non-identity layout rather
+    than applying gates to the wrong axes."""
+    sv = FastStatevector(4, device="cpu", fusion_mode=mode)
+    sv.axis_of = [1, 0, 2, 3]
+    with pytest.raises(ValueError, match="identity layout"):
+        sv.run([tgates.H(0)])
+
+
 def test_chain_selected_by_env_and_run_compiled_refuses(monkeypatch):
     monkeypatch.setenv("QCT_SV_FUSION", "chain")
     sv = FastStatevector(4, device="cpu")

@@ -177,6 +177,138 @@ def test_chain_tile_at_full_width():
     assert local == list(range(12, 3, -1))
 
 
+def _compose_case(kind, rng):
+    """(bits, us) at N = 14: the "distinct" and "repeated24" chains, and a
+    chain that comes back to bits after gates on other bits."""
+    if kind != "revisit":
+        return _chain_case(kind, rng)
+    bits = (7, 9, 7, 13, 9, 8, 7, 13, 12, 9)
+    return bits, np.stack([_rand_u(rng, 2) for _ in bits])
+
+
+@pytest.mark.parametrize("kind", ["distinct", "repeated24", "revisit"])
+def test_compose_chain_matches_plain_and_pallas(kind):
+    """The per-bit composition the kernel applies, one mix per distinct
+    bit, equals the chain gate by gate: the plain version and the JAX
+    Pallas kernel (interpret mode)."""
+    import jax.numpy as jnp
+
+    from quantum_computations_tpu.ops import pallas_kernels as pk
+
+    N = 14
+    rng = np.random.default_rng({"distinct": 61, "repeated24": 67,
+                                 "revisit": 71}[kind])
+    bits, us = _compose_case(kind, rng)
+    distinct, mixes = gk.compose_chain(us, bits)
+    assert distinct == tuple(dict.fromkeys(bits))
+    assert mixes.shape == (len(distinct), 2, 2)
+    np.testing.assert_allclose(mixes @ mixes.conj().transpose(0, 2, 1),
+                               np.broadcast_to(np.eye(2), mixes.shape),
+                               atol=1e-12)
+    xr, xi = _planes(rng, N)
+    got = _t(xr, xi)
+    for m, b in zip(mixes, distinct):
+        got = gk.apply_1q_plain(*got, m, N - b - 1, N)
+    _close(got, gk.apply_1q_chain_plain(*_t(xr, xi), us, bits, N))
+    _close(got, pk.apply_1q_chain(jnp.asarray(xr), jnp.asarray(xi),
+                                  jnp.asarray(us), bits, N, interpret=True))
+
+
+def _planned_kernel_model(re, im, us, bits, N):
+    """The chain kernel in numpy, from the tables ``apply_1q_chain`` hands
+    it: per block, each thread gathers its registers through the first
+    stage's offsets, applies its stage's mixes, goes through the swizzled
+    shared tile to the next stage's layout, and stores through the last
+    stage's offsets. Asserts that each stage's shared slots, and each
+    block's loads and stores, are one permutation of the tile."""
+    distinct, mixes = gk.compose_chain(us, bits)
+    plan = gk.chain_plan(distinct, N)
+    rb, tb = plan["reg_bits"], plan["thread_bits"]
+    tid = np.arange(1 << tb)
+    stage_mixes = [dict() for _ in plan["regs"]]
+    for m, (stage, slot) in zip(mixes.astype(np.complex64), plan["mix_slot"]):
+        stage_mixes[stage][slot] = m
+
+    def part(pos):
+        return sum((((tid >> j) & 1) << p for j, p in enumerate(pos)),
+                   np.zeros_like(tid))
+
+    def mix(x, s):
+        x = x.reshape((1 << tb,) + (2,) * rb)
+        for q, m in stage_mixes[s].items():
+            x = np.moveaxis(np.tensordot(m, x, axes=([1], [rb - q])), 0, rb - q)
+        return x.reshape(1 << tb, 1 << rb)
+
+    swz = np.vectorize(gk._swizzle)
+    x = (re.astype(np.float64) + 1j * im).copy()
+    out = x.copy()
+    owned = np.zeros(1 << N, int)
+    for blk in range(1 << len(plan["other"])):
+        base = sum(((blk >> j) & 1) << o for j, o in enumerate(plan["other"]))
+        load = base + part(plan["gthr"][0])[:, None] + \
+            np.array(plan["greg"][0])[None, :]
+        owned[load] += 1
+        regs = mix(x[load], 0)
+        for s in range(1, len(plan["regs"])):
+            slots = swz(part(plan["sthr"][s - 1]))[:, None] ^ \
+                np.array(plan["sreg"][s - 1])[None, :]
+            assert sorted(slots.ravel()) == list(range(1 << (tb + rb)))
+            tile = np.empty(1 << (tb + rb), complex)
+            tile[slots] = regs
+            slots = swz(part(plan["sthr"][s]))[:, None] ^ \
+                np.array(plan["sreg"][s])[None, :]
+            regs = mix(tile[slots], s)
+        store = base + part(plan["gthr"][1])[:, None] + \
+            np.array(plan["greg"][1])[None, :]
+        assert sorted(store.ravel()) == sorted(load.ravel())
+        out[store] = regs
+    return out.real, out.imag, owned
+
+
+@pytest.mark.parametrize("N,bits", [
+    (14, (7, 8, 9, 10, 11, 12, 13) * 3),
+    (16, (15, 0, 3, 15, 9)),
+    (20, tuple(range(15, 6, -1)) * 2 + (7, 8, 9, 10, 11, 12)),
+    (13, tuple(range(13))),
+    (12, tuple(range(12)) * 2),
+    (5, (0, 4, 2)),
+    (3, (0, 2, 1, 2)),
+])
+def test_chain_plan_model_matches_plain(N, bits):
+    """The register-resident kernel's tables, run through a numpy model of
+    its index arithmetic, give the plain chain; every amplitude is owned by
+    exactly one block."""
+    rng = np.random.default_rng(N + 100)
+    us = np.stack([_rand_u(rng, 2) for _ in bits])
+    xr, xi = _planes(rng, N)
+    got_r, got_i, owned = _planned_kernel_model(xr, xi, us, bits, N)
+    assert np.all(owned == 1)
+    want = gk.apply_1q_chain_plain(*_t(xr, xi), us, bits, N)
+    np.testing.assert_allclose(got_r, want[0].numpy(), atol=ATOL)
+    np.testing.assert_allclose(got_i, want[1].numpy(), atol=ATOL)
+    plan = gk.chain_plan(tuple(dict.fromkeys(bits)), N)
+    assert len(plan["regs"]) == -(-len(set(bits)) // plan["reg_bits"])
+
+
+def test_chain_plan_at_full_width():
+    """N = 30, the planner's bits 7..15 (tile bits 4..12): two stages, one
+    shared round trip; the lanes of a warp cover runs of 16 amplitudes in
+    device memory and 32 banks of shared memory in both layouts."""
+    plan = gk.chain_plan(tuple(range(15, 6, -1)), 30)
+    assert plan["regs"] == [[12, 11, 10, 9, 8], [7, 6, 5, 4, 12]]
+    assert (plan["reg_bits"], plan["thread_bits"]) == (5, 8)
+    for gthr in plan["gthr"]:
+        assert gthr[:4] == [0, 1, 2, 3]  # lanes 0..15: 64 contiguous bytes
+    lane = np.arange(32)
+    for sthr, sreg in zip(plan["sthr"], plan["sreg"]):
+        for warp in range(8):
+            tid = warp * 32 + lane
+            st = [gk._swizzle(sum(((t >> j) & 1) << p
+                                  for j, p in enumerate(sthr))) for t in tid]
+            for r in sreg:
+                assert len({(s ^ r) % 32 for s in st}) == 32
+
+
 @pytest.mark.parametrize("which", ["1q", "2q", "chain"])
 def test_wrappers_on_cpu_use_plain_and_count_no_launch(which):
     rng = np.random.default_rng(7)

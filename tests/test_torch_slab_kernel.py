@@ -7,10 +7,17 @@ unitary window, so each output is a sum of 2d float32 products taken in
 another order than XLA's: atol 2e-6 (d = 128 sums 256 terms of magnitude
 <= 1, whose rounding stays ~1e-6).
 
-The CUDA kernel has no CPU mode; ``test_kernel_matches_plain_on_card``
-(marker ``cuda``) holds it against the plain version on a CUDA device and
-skips without one. This file imports JAX only inside the JAX-side tests, so
-on a machine without JAX the card tests run with
+The CUDA kernel has no CPU mode. Its tensor-core path (d >= 64) is
+modelled here in numpy: the 3xTF32 split (``cvt.rna.tf32.f32``: 10
+mantissa bits, round to nearest, ties away; the small part truncated, as
+the tensor cores read it), B staged and read back as the kernel's wgmma
+descriptors address it, and the tensor cores' truncating sums, held
+against the plain version at the kernel's own bound, 1e-5 x max|plain|;
+one TF32 pass fails that bound. ``test_kernel_matches_plain_on_card`` and
+``test_tensor_cores_six_decades_on_card`` (marker ``cuda``) hold the kernel
+against the plain version on a CUDA device and skip without one. This
+file imports JAX only inside the JAX-side tests, so on a machine without
+JAX the card tests run with
 ``python -m pytest --noconftest -m cuda tests/test_torch_slab_kernel.py``.
 """
 
@@ -56,6 +63,104 @@ def test_plain_matches_pallas_interpret(d, R):
     got_r, got_i = sk.slab_matmul_plain(*_t(xr, xi, wtr, wti))
     np.testing.assert_allclose(got_r.numpy(), np.asarray(want_r), atol=ATOL)
     np.testing.assert_allclose(got_i.numpy(), np.asarray(want_i), atol=ATOL)
+
+
+def _tf32(x):
+    """``cvt.rna.tf32.f32``: keep 10 mantissa bits, round to nearest, ties
+    away from zero (add half an ulp to the magnitude bits, truncate)."""
+    bits = np.asarray(x, np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(
+        np.float32)
+
+
+def _split(x):
+    """big = tf32(x) to nearest; small = x - big, which the tensor cores
+    read truncated to TF32 (the top 19 bits)."""
+    big = _tf32(x)
+    small = (x - big).astype(np.float32).view(np.uint32)
+    return big, (small & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _rz_sum(acc, prod):
+    """acc + prod as the tensor cores add a product into an FP32
+    accumulator: exact, then truncated (rounded toward zero)."""
+    exact = acc.astype(np.float64) + prod
+    d = exact.astype(np.float32)
+    over = np.abs(d) > np.abs(exact)
+    d[over] = np.nextafter(d[over], np.float32(0))
+    return d
+
+
+def _tc_kernel_model(xr, xi, wtr, wti, passes=3):
+    """The tensor-core kernel (d >= 64) in numpy. Each CTA of a cluster
+    stages its B words as the kernel does (k-permuted 8 x 16-byte core
+    matrices of [-Wt_im | Wt_re | Wt_im] for its half of the columns, TF32
+    big then small) and reads them back through the wgmma descriptor
+    (core matrices 128 B apart along K, 256 B along N). Per 64 rows and
+    4 16-column k-blocks, 24 m64nNk8 products go into a fresh fragment with
+    the tensor cores' truncating sum (small.big and big.small, then
+    big.big; ``passes=1`` keeps big.big only), which is then added to the
+    running sum. Rows need not fill the last tile."""
+    D = wtr.shape[0]
+    H, KB, KQ = D // 2, D // 16, 4            # KQ k-blocks per fragment
+    step = (3 * H // 8) * 2 * 32              # words of one k-step
+    words = np.arange((D // 8) * step)
+    s, cm = words // step, (words % step) // 32
+    r, el = (words % 32) // 4, words % 4
+    k = 16 * (s // 2) + 4 * el + 2 * (cm % 2) + s % 2
+    c = 8 * (cm // 2) + r
+    R = xr.size // D
+    rows = -(-R // 64) * 64
+    x = [np.zeros((rows, D), np.float32) for _ in range(2)]
+    x[0][:R], x[1][:R] = xr.reshape(R, D), xi.reshape(R, D)
+    out = [np.zeros((rows, D), np.float32) for _ in range(2)]
+    kk, nn = np.meshgrid(np.arange(8), np.arange(2 * H), indexing="ij")
+    b_off = (nn // 8) * 64 + (kk // 4) * 32 + (nn % 8) * 4 + kk % 4
+    for rank in (0, 1):
+        n = rank * H + c % H
+        big, small = _split(np.where(c < H, -wti[k, n],
+                                     np.where(c < 2 * H, wtr[k, n],
+                                              wti[k, n])).astype(np.float32))
+        for row0 in range(0, rows, 64):
+            acc = np.zeros((64, 2 * H), np.float32)
+            for b in range(0, 2 * KB, KQ):
+                src = x[b >= KB][row0:row0 + 64]
+                start = 2 * (b % KB) * step + (0 if b >= KB else H // 8 * 64)
+                a, bb = [], []
+                for ks in range(2 * KQ):  # k-step: block b + ks // 2, j = ks % 2
+                    cols = 16 * (b % KB + ks // 2) + ks % 2 + \
+                        np.r_[0, 4, 8, 12, 2, 6, 10, 14]
+                    a.append(_split(src[:, cols]))
+                    at = start + ks * step + b_off
+                    bb.append((big[at], small[at]))
+                part = np.zeros((64, 2 * H), np.float32)
+                lo = [(a[ks][1], bb[ks][0]) if t == 0 else (a[ks][0], bb[ks][1])
+                      for ks in range(2 * KQ) for t in range(2)]
+                for am, bm in lo * (passes == 3) + \
+                        [(a[ks][0], bb[ks][0]) for ks in range(2 * KQ)]:
+                    part = _rz_sum(part, am.astype(np.float64) @ bm)
+                acc += part
+            out[0][row0:row0 + 64, rank * H:rank * H + H] = acc[:, :H]
+            out[1][row0:row0 + 64, rank * H:rank * H + H] = acc[:, H:]
+    return out[0][:R].reshape(-1), out[1][:R].reshape(-1)
+
+
+@pytest.mark.parametrize("d,R,passes", [(128, 64, 3), (128, 64, 1),
+                                        (64, 100, 3)])
+def test_tensor_core_model_matches_plain(d, R, passes):
+    """3xTF32 with the kernel's fragments is within the kernel's bound,
+    1e-5 x max|plain|, of the plain version at d = 128 (random unitary
+    window, unit-normal planes) and on a ragged last tile; one TF32 pass
+    is not, so the model tells the two apart."""
+    xr, xi, wtr, wti = _inputs(d, R, seed=R + d)
+    want = sk.slab_matmul_plain(*_t(xr, xi, wtr, wti))
+    got = _tc_kernel_model(xr, xi, wtr, wti, passes)
+    scale = max(float(w.abs().max()) for w in want)
+    err = max(float(np.abs(g - w.numpy()).max()) for g, w in zip(got, want))
+    if passes == 3:
+        assert err <= 1e-5 * scale
+    else:
+        assert err > 1e-5 * scale
 
 
 def test_wrapper_on_cpu_uses_plain_and_counts_no_launch():
@@ -142,3 +247,29 @@ def test_kernel_matches_plain_on_card(d):
         assert sk.slab_matmul.launches == before + 1
         for g, w in zip(got, want):
             torch.testing.assert_close(g, w, atol=1e-5, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+def test_tensor_cores_six_decades_on_card(d):
+    """The 3xTF32 path on inputs whose magnitudes span six decades
+    (10^-3..10^3 per element): each row within 1e-5 x its own max|plain|,
+    so the split keeps float32's relative precision at every scale; and
+    the C dispatcher reports the tensor-core kernel for d >= 64."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    R = 4096 + 7
+    xr, xi, wtr, wti = _inputs(d, R, seed=d + 11)
+    rng = np.random.default_rng(d)
+    xr = xr * 10.0 ** rng.uniform(-3, 3, xr.size).astype(np.float32)
+    xi = xi * 10.0 ** rng.uniform(-3, 3, xi.size).astype(np.float32)
+    xr, xi, wtr, wti = (t.cuda() for t in _t(xr, xi, wtr, wti))
+    want = sk.slab_matmul_plain(xr, xi, wtr, wti)
+    launches = sk.slab_matmul.tensor_core_launches
+    got = sk.slab_matmul(xr, xi, wtr, wti)
+    torch.cuda.synchronize()
+    assert sk.slab_matmul.tensor_core_launches == launches + 1
+    for g, w in zip(got, want):
+        g, w = g.view(R, d), w.view(R, d)
+        row_max = w.abs().amax(dim=1, keepdim=True)
+        assert bool(((g - w).abs() <= 1e-5 * row_max).all())
