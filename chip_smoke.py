@@ -9,22 +9,39 @@ drives both of its paths at full width, N = 30 (two float32 planes of
 4 GiB each, updated in place): ``FastStatevector(30, device="cuda")`` in
 slab mode through ``run_compiled``, and in chain mode through ``run``.
 Then it times each kernel at the shape its path gives it, beside its bound,
-its plain version and one library call. Prints one line per phase with its
-wall time, then the card's name and power limit, a JSON line of per-kernel
+its plain version and one library call.
+
+Then the CV grid-MPS engine, ``cv.Simulator(gates).run(mps)``, at the
+production grid (d = 1000 on [-20, 20], 10 dB GKP states, bond cap 100,
+rel_err 1e-2): Steane EC (S), qunaught EC (Q), a three-mode tour of every
+gate class (T), and Q at bond cap 40 on the randomized SVD (Q40). Each runs
+in complex128 with seeded outcomes and in complex64 with those outcomes
+forced; the states, the outcomes' probabilities and the norms are held
+against each other, and S once more against a complex128 run on the CPU.
+Two controls rerun each circuit in complex64 in a precision the port must
+not fall back to (the SVD's Gram in complex64; grid tables from a float32
+grid), and the complex64 limits must catch each of them.
+
+Prints one line per phase with its wall time, JSON lines of the paths'
+numbers, then the card's name and power limit, a JSON line of per-kernel
 numbers, and as its last line ``{"ok": true, "device": {...}}``. Any
 failure exits non-zero and prints no result; so does a machine without a
 CUDA device.
 
-Imports nothing of JAX: the references are the port's plain versions and
-numpy.
+Imports nothing of JAX: the references are the port's plain versions,
+numpy, and the port's own CPU path.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
+import logging
+import os
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -188,6 +205,494 @@ def logical_amplitudes(sv) -> np.ndarray:
     re, im, axis_of = sv.to_numpy()
     amp = (re.astype(np.float64) + 1j * im).reshape((2,) * sv.N)
     return amp.transpose(axis_of).reshape(-1)
+
+
+# -- the CV grid-MPS path ------------------------------------------------------
+# Production settings of the GKP pipelines: d = 1000 on [-20, 20], 10 dB
+# GKP states, bond cap 100 at rel_err 1e-2 (Q40: cap 40, the randomized SVD).
+CV_QS = np.linspace(-20, 20, 1000)
+CV_EPS = float(2 * np.arctanh(10 ** (-10 / 10) / 2))
+CV_SEED = 7
+CV_REPS = 3          # timed runs per circuit, after one warm-up
+# complex64 vs complex128 limits per circuit, on 1 - fidelity and on each
+# outcome's relative probability difference: 5-25x above the sound
+# readings on an H100, and below those of a control (``cv_control``)
+# wherever the control moves the circuit past that headroom; phase 7d
+# checks that each control is caught (PERF.md, PR 7)
+CV_FID_TOL = {"S": 1e-12, "Q": 1e-13, "T": 1e-11, "Q40": 3e-9}
+CV_PROB_RTOL = {"S": 3e-6, "Q": 1e-5, "T": 3e-5, "Q40": 3e-4}
+CV_NORM_TOL = 1e-3   # |norm - 1| after every gate that is not a measurement
+CV_CPU_FID_TOL = 1e-8  # card complex128 vs CPU complex128 (S)
+CV_TRACE_DIR = os.path.join("profile_traces", "cv")  # ignored by git
+
+
+@contextlib.contextmanager
+def x64_dtype():
+    """QCT_X64=1 inside the block: the port's default dtype is complex128."""
+    old = os.environ.get("QCT_X64")
+    os.environ["QCT_X64"] = "1"
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ["QCT_X64"]
+        else:
+            os.environ["QCT_X64"] = old
+
+
+def cv_circuit(name: str, cg, State, forced=()):
+    """The gate list of circuit ``name``; ``forced`` gives the measurement
+    outcomes in gate order (None: sampled)."""
+    f = iter(forced)
+    m = lambda: next(f, None)  # noqa: E731
+    eps = CV_EPS
+
+    def quadrature_correction():  # pipelines/cv_circuits.py:33-38
+        return [cg.Insert(1, State.GKP_ZERO, gkp_epsilon=eps), cg.CZ(0, 1),
+                cg.Mp(1, result=m())]
+
+    if name == "S":  # Steane EC, pipelines/cv_circuits.py:41-47
+        first = quadrature_correction()
+        return [*first, cg.F(0, dagger=True), *quadrature_correction(),
+                cg.F(0)]
+    if name in ("Q", "Q40"):  # qunaught EC, pipelines/cv_circuits.py:19-30
+        return [cg.Insert(1, State.QUNAUGHT, gkp_epsilon=eps),
+                cg.Insert(2, State.QUNAUGHT, gkp_epsilon=eps),
+                cg.BS(2, 1), cg.BS(1, 0), cg.Mq(0, result=m()),
+                cg.Mp(0, result=m())]
+    if name == "T":  # every gate class of cv/gates.py on three modes
+        return [cg.Insert(0, State.GKP_ZERO, gkp_epsilon=eps),
+                cg.Insert(1, State.GKP_PLUS, gkp_epsilon=eps),
+                cg.Insert(2, State.GKP_T, gkp_epsilon=eps),
+                cg.BS(0, 1), cg.CZ(1, 2), cg.CX(2, 1), cg.SWAP(0, 1),
+                cg.F(0), cg.X(1, 0.3), cg.Z(2, 0.4), cg.D(0, [0.2, -0.3]),
+                cg.P(1, 0.5), cg.S(2, 0.2, np.pi / 2), cg.Phase(0, np.pi / 3),
+                cg.BS(1, 2, 0.3, dagger=True), cg.CX(0, 1, s=0.5),
+                cg.Mq(2, result=m()), cg.Insert(2, State.VACUUM),
+                cg.CZ(1, 2), cg.Homodyne(1, np.pi / 3, result=m()),
+                cg.Mp(1, result=m())]
+    raise ValueError(name)
+
+
+def cv_initial(name: str, MPS, State, device: str):
+    if name == "T":
+        return MPS(CV_QS, [], device=device)
+    return MPS(CV_QS, [State.GKP_H.eval(CV_QS, CV_EPS, device=device)])
+
+
+def cv_options(name: str, SVDOptions):
+    return SVDOptions(max_bond_dim=40 if name == "Q40" else 100, rel_err=1e-2)
+
+
+def kept_ranks(mps) -> list[int]:
+    """The kept rank of every bond: its nonzero columns (truncated
+    directions are exact zeros)."""
+    return [int((t.abs().sum(dim=(0, 1)) > 0).sum()) for t in mps.tensors[:-1]]
+
+
+def cv_run(name: str, device="cuda", forced=(), check=False, profile_dir=None,
+           snapshots=None):
+    """One run of circuit ``name`` through ``cv.Simulator``. With ``check``,
+    a per-gate hook holds |norm - 1| after every non-measurement gate and
+    records the kept ranks and the largest contracted two-mode tensor;
+    with ``snapshots`` (a list) it also keeps the state after every gate if
+    the list is empty, else the fidelity to the state it holds there."""
+    from quantum_computations_tpu_torch.config import SVDOptions
+    from quantum_computations_tpu_torch.cv import MPS, Simulator, State
+    from quantum_computations_tpu_torch.cv import gates as cg
+    from quantum_computations_tpu_torch.cv import simulator as cv_sim
+
+    gates = cv_circuit(name, cg, State, forced)
+    info = {"norm_err": 0.0, "ranks": [], "largest_pair": 0,
+            "gate_infidelity": []}
+    keep = snapshots is not None and not snapshots
+
+    def hook(sim):
+        st = sim._state
+        i = len(info["ranks"])
+        info["ranks"].append(kept_ranks(st))
+        if not isinstance(gates[i], cg.Measurement):
+            err = abs(float(st.norm()) - 1.0)
+            info["norm_err"] = max(info["norm_err"], err)
+            if not err < CV_NORM_TOL:
+                raise AssertionError(f"{name}: |norm - 1| = {err} after gate "
+                                     f"{i} ({gates[i]})")
+        if keep:
+            snapshots.append(st.copy())
+        elif snapshots is not None and len(st):
+            info["gate_infidelity"].append(1 - cv_fidelity(snapshots[i], st))
+        if i + 1 < len(gates) and isinstance(gates[i + 1], cg.TwoModeGate):
+            g = gates[i + 1]
+            a, d, _ = st[g.left_index].shape
+            info["largest_pair"] = max(info["largest_pair"],
+                                       a * d * d * st[g.right_index].shape[2])
+
+    sim = Simulator(gates, rng_seed=CV_SEED, debug_info=hook,
+                    svd_options=cv_options(name, SVDOptions))
+    log_level = cv_sim.logger.level
+    cv_sim.logger.setLevel(logging.DEBUG if check else logging.WARNING)
+    try:
+        mps = cv_initial(name, MPS, State, device)
+        out = sim.run(mps, profile_dir=profile_dir)
+    finally:
+        cv_sim.logger.setLevel(log_level)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    info["gates"] = len(gates)
+    info["outcomes"] = [r.result for r in sim.results]
+    info["probabilities"] = [float(r.probability) for r in sim.results]
+    if check and info["largest_pair"] > cg._STREAM_THRESHOLD:
+        raise AssertionError(f"{name} asked for the streamed split")
+    return out, info
+
+
+def gram_svd_complex64(A):
+    """Control: ``ops.linalg.svd_gram`` with its Gram formed and decomposed
+    in A's dtype (complex64) instead of float64, its diagonal ramp scaled
+    to float32 rounding."""
+    m, n = A.shape
+    if m < n:
+        U, s, Vh = gram_svd_complex64(A.mH)
+        return Vh.mH.resolve_conj(), s, U.mH.resolve_conj()
+    G = A.mH @ A
+    G.diagonal().add_(torch.arange(n, dtype=G.real.dtype, device=G.device)
+                      * (1e-7 * torch.trace(G).real / n**2))
+    w, V = torch.linalg.eigh(G)
+    w, V = w.flip(0), V.flip(1)
+    s = torch.sqrt(torch.clamp(w, min=0.0))
+    U = (A @ V) / torch.where(s > 0, s, torch.ones_like(s))[None, :]
+    return U, s, V.mH.resolve_conj()
+
+
+@contextlib.contextmanager
+def cv_control(kind: str):
+    """Inside the block the port computes in a precision it must not fall
+    back to: "gram_c64", the SVD's Gram in complex64 on the card; or
+    "tables_f32", every grid table of ``ops/interp`` (sinc, rotation
+    kernel, CFT phase, CZ phase, shear coordinates) formed from a float32
+    grid. The complex64-vs-complex128 limits must catch each of them."""
+    from quantum_computations_tpu_torch.ops import interp, linalg
+    if kind == "gram_c64":
+        module, attr = linalg, "svd_compat"
+        real = linalg.svd_compat
+        patch = lambda A, full_matrices=False: (  # noqa: E731
+            gram_svd_complex64(A) if A.is_cuda else real(A, full_matrices))
+    elif kind == "tables_f32":
+        module, attr = interp, "_f64"
+        patch = lambda x, like: torch.as_tensor(  # noqa: E731
+            x, dtype=torch.float32, device=like.device)
+    else:
+        raise ValueError(kind)
+    real_attr = getattr(module, attr)
+    setattr(module, attr, patch)
+    try:
+        yield
+    finally:
+        setattr(module, attr, real_attr)
+
+
+def c64_vs_c128(ref, ref_info, got, got_info) -> tuple[float, float]:
+    """(1 - fidelity, max relative probability difference) of a complex64
+    run against the complex128 run whose outcomes it forced."""
+    fid = cv_fidelity(ref, got)
+    prob_rel = max((abs(p - q) / q for p, q in
+                    zip(got_info["probabilities"], ref_info["probabilities"])),
+                   default=0.0)
+    return 1 - fid, prob_rel
+
+
+def cv_fidelity(a, b) -> float:
+    """|<a|b>|^2 / (<a|a><b|b>) in complex128 on a's device."""
+    from quantum_computations_tpu_torch.cv import MPS
+    a = MPS(a.domain, a.tensors, device=a.device, dtype=torch.complex128)
+    b = MPS(b.domain, b.tensors, device=a.device, dtype=torch.complex128)
+    return float(MPS.fidelity(a, b) / (a.norm() ** 2 * b.norm() ** 2))
+
+
+def trace_summary(trace_dir: str) -> dict:
+    """Device-busy share and per-gate-class times of the newest
+    ``torch.profiler`` trace in ``trace_dir``: the window runs from the
+    first ``cv:`` span to the end of the last span or device event; device
+    time of a gate class sums the kernels, copies and fills launched inside
+    its spans."""
+    path = max((os.path.join(trace_dir, f) for f in os.listdir(trace_dir)
+                if f.endswith(".json")), key=os.path.getmtime)
+    with open(path) as fh:
+        events = [e for e in json.load(fh)["traceEvents"] if e.get("ph") == "X"]
+    spans = sorted((e for e in events if e.get("cat") == "user_annotation"
+                    and e["name"].startswith("cv:")), key=lambda e: e["ts"])
+    device = [e for e in events
+              if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    launch_ts = {e["args"]["correlation"]: e["ts"] for e in events
+                 if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                 and "correlation" in e.get("args", {})}
+    if not spans or not device:
+        raise AssertionError(f"the trace {path} holds {len(spans)} gate spans "
+                             f"and {len(device)} device events")
+    t0 = spans[0]["ts"]
+    t1 = max(max(e["ts"] + e["dur"] for e in spans),
+             max(e["ts"] + e["dur"] for e in device))
+    busy, end = 0.0, t0
+    for e in sorted(device, key=lambda e: e["ts"]):
+        s, f = max(e["ts"], end), min(e["ts"] + e["dur"], t1)
+        if f > s:
+            busy += f - s
+            end = f
+    per_class = {}
+    for sp in spans:
+        row = per_class.setdefault(sp["name"][3:], {"calls": 0, "host_ms": 0.0,
+                                                    "device_ms": 0.0})
+        row["calls"] += 1
+        row["host_ms"] += sp["dur"] / 1e3
+    for e in device:
+        ts = launch_ts.get(e.get("args", {}).get("correlation"))
+        for sp in spans:
+            if ts is not None and sp["ts"] <= ts <= sp["ts"] + sp["dur"]:
+                per_class[sp["name"][3:]]["device_ms"] += e["dur"] / 1e3
+                break
+    return {"trace": path, "window_ms": (t1 - t0) / 1e3,
+            "device_busy_ms": busy / 1e3, "device_busy_share": busy / (t1 - t0),
+            "per_class": per_class}
+
+
+def count_syncs(fn) -> int:
+    """Host syncs of ``fn()``, as torch's sync debug mode reports them."""
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+def split_parts(name: str, k: int, forced, reference: bool) -> dict:
+    """Gate ``k`` of circuit ``name`` (a two-mode gate) in its parts, on the
+    complex64 state the circuit reaches there with ``forced`` outcomes: the
+    contraction + grid transform, the port's SVD (``svd_compat``: float64
+    Gram eigh on CUDA), and the truncation mask + bond trim (one host
+    sync); and the host syncs of the whole split (``cv.gates._split``).
+    With ``reference``, the rank-r products of ``svd_compat``, of
+    cuSOLVER's ``torch.linalg.svd`` of the same complex64 matrix (also
+    timed) and of the complex64-Gram control are held against
+    LAPACK's complex128 SVD of that matrix on the CPU, r the kept rank."""
+    from quantum_computations_tpu_torch.config import SVDOptions
+    from quantum_computations_tpu_torch.cv import MPS, Simulator, State
+    from quantum_computations_tpu_torch.cv import gates as cg
+    from quantum_computations_tpu_torch.ops import interp, linalg
+
+    gates = cv_circuit(name, cg, State, forced)
+    opts = cv_options(name, SVDOptions)
+    mps = Simulator(gates[:k], rng_seed=CV_SEED, svd_options=opts).run(
+        cv_initial(name, MPS, State, "cuda"))
+    gate = gates[k]
+    t1, t2 = mps[gate.left_index], mps[gate.right_index]
+    a, d, _ = t1.shape
+    b = t2.shape[2]
+    if isinstance(gate, cg.BS):
+        params = ("rot", gate.arg * (-1) ** (gate.index1 > gate.index2)
+                  * (-1) ** gate.dagger)
+    elif isinstance(gate, cg.CZ):
+        params = ("cz", (-1) ** gate.dagger * gate.arg)
+    else:
+        raise ValueError(f"{gate} is not a BS or a CZ")
+
+    def contract_warp():
+        return interp.affine_warp(mps.qs, torch.tensordot(t1, t2, dims=([2], [0])),
+                                  params)
+
+    m = contract_warp().reshape(a * d, d * b)
+    split_syncs = count_syncs(
+        lambda: cg._split(contract_warp(), (0, 1), (2, 3), opts, None))
+    contract_ms = cuda_ms(contract_warp, 3)
+    gram_ms = cuda_ms(lambda: linalg.svd_compat(m), 2)
+    u, s, vh = linalg.svd_compat(m)
+    cap = min(opts.max_bond_dim, a * d, d * b)
+
+    def mask_trim():
+        rank, mask = linalg.truncation_rank_mask(s, opts.max_bond_dim, 0.0,
+                                                 opts.rel_err)
+        sq = (torch.sqrt(s) * mask).to(u.dtype)
+        return linalg.trim_split((u * sq[None, :])[:, :cap],
+                                 (sq[:, None] * vh)[:cap], rank)
+
+    mask_trim()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(3):
+        mask_trim()
+    torch.cuda.synchronize()
+    trim_ms = (time.perf_counter() - t) / 3 * 1e3
+    r = int(linalg.truncation_rank_mask(s, opts.max_bond_dim, 0.0, opts.rel_err)[0])
+    parts = {"gate": f"{gate} (gate {k} of {name})", "matrix": [a * d, d * b],
+             "dtype": str(m.dtype), "kept_rank": r,
+             "contraction_warp_ms": contract_ms, "svd_compat_ms": gram_ms,
+             "mask_trim_ms": trim_ms, "host_syncs_per_split": split_syncs}
+    if not reference:
+        return parts
+
+    cusolver = torch.linalg.svd(m, full_matrices=False)  # warm-up; its error
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    torch.linalg.svd(m, full_matrices=False)
+    end.record()
+    torch.cuda.synchronize()
+    u0, s0, vh0 = torch.linalg.svd(m.cpu().to(torch.complex128),
+                                   full_matrices=False)
+    want = (u0[:, :r] * s0[:r]) @ vh0[:r]
+
+    def trunc_err(u, s, vh) -> float:
+        got = ((u[:, :r] * s[:r]) @ vh[:r]).cpu().to(torch.complex128)
+        return float((got - want).norm() / want.norm())
+
+    parts.update({
+        "cusolver_svd_ms": start.elapsed_time(end),
+        "svd_compat_trunc_rel_err": trunc_err(u, s, vh),
+        "cusolver_trunc_rel_err": trunc_err(*cusolver),
+        "gram_c64_control_trunc_rel_err": trunc_err(*gram_svd_complex64(m))})
+    return parts
+
+
+def cv_path() -> dict:
+    from quantum_computations_tpu_torch.ops import linalg
+
+    result = {"grid": [float(CV_QS[0]), float(CV_QS[-1]), len(CV_QS)],
+              "epsilon": CV_EPS, "circuits": {}}
+    for name in ("S", "Q", "T", "Q40"):
+        with Phase(f"7 cv {name}"):
+            randomized = 0
+            real_rsvd = linalg.randomized_truncated_svd
+
+            def counting_rsvd(*args, **kwargs):
+                nonlocal randomized
+                randomized += 1
+                return real_rsvd(*args, **kwargs)
+
+            linalg.randomized_truncated_svd = counting_rsvd
+            try:
+                snaps = []
+                with x64_dtype():
+                    ref, ref_info = cv_run(name, check=True, snapshots=snaps)
+                forced = ref_info["outcomes"]
+                got, got_info = cv_run(name, forced=forced, check=True,
+                                       snapshots=snaps)
+                del snaps
+            finally:
+                linalg.randomized_truncated_svd = real_rsvd
+            if ref.dtype != torch.complex128 or got.dtype != torch.complex64:
+                raise AssertionError(f"{name} ran in {ref.dtype}, {got.dtype}")
+            loss, prob_rel = c64_vs_c128(ref, ref_info, got, got_info)
+            fid = 1 - loss
+            controls = {}
+            for kind in ("gram_c64", "tables_f32"):
+                try:
+                    with cv_control(kind):
+                        c_out, c_info = cv_run(name, forced=forced)
+                except torch.linalg.LinAlgError as e:
+                    # the control's decomposition failed: the smoke would
+                    # stop on such a fallback, so it counts as caught
+                    controls[kind] = {"raised": repr(e), "infidelity": 1.0,
+                                      "max_rel_prob_diff": float("inf")}
+                    continue
+                c_loss, c_prob = c64_vs_c128(ref, ref_info, c_out, c_info)
+                controls[kind] = {"infidelity": c_loss, "max_rel_prob_diff": c_prob}
+                del c_out
+            log(f"{name}: {got_info['gates']} gates; outcomes "
+                f"{forced}; complex64 vs complex128: 1 - fidelity {loss:.3e}, "
+                f"max rel prob diff {prob_rel:.2e}, max |norm - 1| "
+                f"{ref_info['norm_err']:.2e} / {got_info['norm_err']:.2e}; "
+                f"probabilities (c128) {ref_info['probabilities']}, (c64) "
+                f"{got_info['probabilities']}; 1 - fidelity after each gate "
+                f"{['%.1e' % x for x in got_info['gate_infidelity']]}; "
+                f"kept ranks (c128) {ref_info['ranks']}; kept ranks (c64) "
+                f"{got_info['ranks']}; largest pair "
+                f"{got_info['largest_pair']} elements; randomized SVDs "
+                f"{randomized}; limits: 1 - fidelity < {CV_FID_TOL[name]}, "
+                f"probabilities within {CV_PROB_RTOL[name]}; controls "
+                f"(1 - fidelity, max rel prob diff) {controls}")
+            if ref_info["ranks"] != got_info["ranks"]:
+                log(f"{name}: the kept ranks of the two runs differ")
+            if not loss < CV_FID_TOL[name]:
+                raise AssertionError(f"{name}: 1 - fidelity = {loss}")
+            if not prob_rel < CV_PROB_RTOL[name]:
+                raise AssertionError(f"{name}: probabilities differ by {prob_rel}")
+            if (randomized > 0) != (name == "Q40"):
+                raise AssertionError(f"{name} ran {randomized} randomized SVDs")
+
+            run = lambda: cv_run(name, forced=forced)  # noqa: E731
+            run()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t = time.perf_counter()
+            for _ in range(CV_REPS):
+                run()
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t) / CV_REPS * 1e3
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            syncs = count_syncs(run)
+            trace_dir = os.path.join(CV_TRACE_DIR, name)
+            cv_run(name, forced=forced, profile_dir=trace_dir)
+            trace = trace_summary(trace_dir)
+            log(f"{name}: {ms:.3f} ms per circuit (complex64, forced outcomes,"
+                f" mean of {CV_REPS}); host syncs per circuit {syncs}; "
+                f"max_memory_allocated {peak:.2f} GiB; traced run: window "
+                f"{trace['window_ms']:.3f} ms, device busy "
+                f"{trace['device_busy_share']:.4f}; per gate class "
+                f"{trace['per_class']}")
+            result["circuits"][name] = {
+                "gates": got_info["gates"],
+                "ms_per_circuit": ms, "host_syncs": syncs,
+                "max_memory_allocated_gib": peak,
+                "fidelity_c64_vs_c128": fid, "max_rel_prob_diff": prob_rel,
+                "controls": controls,
+                "max_norm_err": max(ref_info["norm_err"], got_info["norm_err"]),
+                "outcomes": forced, "ranks_c128": ref_info["ranks"],
+                "ranks_c64": got_info["ranks"],
+                "gate_infidelity_c64": got_info["gate_infidelity"],
+                "largest_pair_elements": got_info["largest_pair"],
+                "randomized_svds": randomized,
+                "device_busy_share": trace["device_busy_share"],
+                "traced_window_ms": trace["window_ms"],
+                "per_gate_class": trace["per_class"]}
+            if name == "S":
+                ref_s = ref, ref_info
+
+    with Phase("7b cv S: card complex128 vs CPU complex128"):
+        cpu, cpu_info = cv_run("S", device="cpu")
+        card, card_info = ref_s
+        fid = cv_fidelity(cpu, card.copy())
+        same = cpu_info["outcomes"] == card_info["outcomes"]
+        log(f"S on the CPU (seed {CV_SEED}): outcomes {cpu_info['outcomes']}"
+            f" (card {card_info['outcomes']}), fidelity to the card's "
+            f"complex128 state {fid:.15f}")
+        if not same:
+            raise AssertionError("the seeded S drew other outcomes on the CPU")
+        if not 1 - fid < CV_CPU_FID_TOL:
+            raise AssertionError(f"S: card vs CPU 1 - fidelity = {1 - fid}")
+        result["S_card_vs_cpu"] = {"same_outcomes": same, "fidelity": fid}
+
+    with Phase("7c cv splits in parts: BS(1, 0) of Q, CZ(1, 2) of T"):
+        result["splits"] = []
+        for name, k, reference in (("Q", 3, True), ("T", 18, False)):
+            parts = split_parts(name, k, result["circuits"][name]["outcomes"],
+                                reference)
+            log(f"split parts: {parts}")
+            result["splits"].append(parts)
+
+    with Phase("7d cv limits against the controls"):
+        for kind in ("gram_c64", "tables_f32"):
+            caught = [name for name, c in result["circuits"].items()
+                      if not (c["controls"][kind]["infidelity"] < CV_FID_TOL[name]
+                              and c["controls"][kind]["max_rel_prob_diff"]
+                              < CV_PROB_RTOL[name])]
+            log(f"control {kind}: outside the limits in {caught}")
+            if not caught:
+                raise AssertionError(f"the complex64 limits pass the {kind} "
+                                     "control in every circuit")
+    return result
 
 
 def main() -> int:
@@ -602,6 +1107,8 @@ def main() -> int:
                 "ms": k_ms, "plain_ms": k_plain_ms, "bound_ms": b_ms,
                 "bound_by": b_by, "library_ms": lib_ms})
 
+    cv = cv_path()
+    print(json.dumps({"cv_path": cv, "card": card}), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

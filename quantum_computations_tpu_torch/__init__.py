@@ -5,12 +5,19 @@ imports ``torch`` and ``numpy`` only, never ``jax`` and nothing of the JAX
 package. Entry points run on ``cuda`` unless the caller passes
 ``device="cpu"``; with no CUDA device and none asked for they raise.
 
-Ported so far: the DV large-N state-vector engine
-(:class:`.dv.FastStatevector`) in its slab, window and chain modes, and all
-four of its hand-written Hopper kernels: :func:`.ops.slab_kernels.slab_matmul`
-(slab mode) and :func:`.ops.gate_kernels.apply_1q_chain`,
-:func:`.ops.gate_kernels.apply_2q_adjacent` and
-:func:`.ops.gate_kernels.apply_1q` (chain mode).
+Ported so far:
+- the DV large-N state-vector engine (:class:`.dv.FastStatevector`) in its
+  slab, window and chain modes, and all four of its hand-written Hopper
+  kernels: :func:`.ops.slab_kernels.slab_matmul` (slab mode) and
+  :func:`.ops.gate_kernels.apply_1q_chain`,
+  :func:`.ops.gate_kernels.apply_2q_adjacent` and
+  :func:`.ops.gate_kernels.apply_1q` (chain mode);
+- the CV grid-MPS engine (:mod:`.cv`: states, MPS, gates and
+  ``cv.Simulator(gates, rng_seed=...).run(mps)``) on :mod:`.ops.linalg`
+  (truncated SVD), :mod:`.ops.theta` and :mod:`.ops.interp` (grid
+  transforms), with :mod:`.utils` (seeded generators, profiler spans).
+  Two-mode splits above ``cv.gates._STREAM_THRESHOLD`` elements raise
+  until the streamed split is ported.
 """
 
 from . import config

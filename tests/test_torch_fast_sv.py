@@ -600,6 +600,10 @@ def test_port_imports_no_jax():
             "import quantum_computations_tpu_torch\n"
             "import quantum_computations_tpu_torch.dv\n"
             "import quantum_computations_tpu_torch.ops.slab_kernels\n"
+            "import quantum_computations_tpu_torch.cv\n"
+            "import quantum_computations_tpu_torch.ops.linalg\n"
+            "import quantum_computations_tpu_torch.ops.interp\n"
+            "import quantum_computations_tpu_torch.utils\n"
             "new = set(sys.modules) - before\n"
             "bad = sorted(m for m in new if m.split('.')[0] in "
             "('jax', 'jaxlib', 'quantum_computations_tpu'))\n"
