@@ -15,9 +15,12 @@ Ported so far:
 - the CV grid-MPS engine (:mod:`.cv`: states, MPS, gates and
   ``cv.Simulator(gates, rng_seed=...).run(mps)``) on :mod:`.ops.linalg`
   (truncated SVD), :mod:`.ops.theta` and :mod:`.ops.interp` (grid
-  transforms), with :mod:`.utils` (seeded generators, profiler spans).
-  Two-mode splits above ``cv.gates._STREAM_THRESHOLD`` elements raise
-  until the streamed split is ported.
+  transforms), with :mod:`.utils` (seeded generators, profiler spans);
+  two-mode splits above ``cv.gates._STREAM_THRESHOLD`` elements run
+  streamed (:mod:`.ops.streamed`) without forming the split matrix;
+- the eager measurement-based GKP engine (:mod:`.gkp`: transpiler,
+  gadgets, Bell insertion, ``gkp.Simulator``, logical readout) with the
+  DV toolbox :mod:`.dv.qop` and :class:`.dv.Simulator` it needs.
 """
 
 from . import config

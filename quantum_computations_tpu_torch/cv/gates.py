@@ -7,16 +7,14 @@ gather of :func:`..ops.interp.warp_2d` with ``QCT_WARP=gather``) and split
 the (a*d, d*b) matrix by a truncated SVD (:func:`..ops.linalg.tensor_svd`),
 then trim the bond to its kept rank on the host.
 
-Differences from the JAX package, both deliberate:
-- The JAX engine streams a concrete split with min(a*d, d*b) > 512 on any
-  backend but the CPU (``_EIGH_SAFE_SIDE``), a workaround for its TPU's
-  realified-Gram eigh. The port splits through
-  :func:`..ops.linalg.svd_compat` (LAPACK on the CPU, the float64 Gram
-  eigh on CUDA) on every device and has no such clause.
-- Above ``_STREAM_THRESHOLD`` elements of the contracted (a, d, d, b)
-  tensor the JAX engine streams the split (``ops/streamed.py``). That
-  path is not ported yet, so the port raises ``NotImplementedError`` there
-  instead of materialising the matrix.
+Above ``_STREAM_THRESHOLD`` elements of the contracted (a, d, d, b)
+tensor (``QCT_STREAM_THRESHOLD``, default 2^28) a split with a bond cap
+runs streamed (:func:`..ops.streamed.streamed_pair_svd`): the matrix is
+never formed. The JAX engine also streams a concrete split with
+min(a*d, d*b) > 512 on any backend but the CPU (``_EIGH_SAFE_SIDE``), a
+workaround for its TPU's realified-Gram eigh; the port splits through
+:func:`..ops.linalg.svd_compat` (LAPACK on the CPU, the float64 Gram eigh
+on CUDA) below the threshold on every device and has no such clause.
 
 Stochastic steps draw from one ``torch.Generator``: measurements sample the
 outcome with ``torch.multinomial`` over the float64 distribution on the
@@ -35,6 +33,7 @@ import torch
 from ..config import SVDOptions, full_fp32_matmul
 from ..ops import interp
 from ..ops.linalg import tensor_svd, trim_split
+from ..ops.streamed import effective_power_iters, streamed_pair_svd
 from .gate_abc import Gate, Measurement, MeasurementResult, SingleModeGate, TwoModeGate, REPR_DIGITS
 from .mps import MPS
 from .states import State
@@ -47,13 +46,11 @@ __all__ = [
     "SingleModeGate", "TwoModeGate",
 ]
 
-# Elements of the contracted (a, d, d, b) tensor above which the JAX
-# engine streams a two-mode split, and the port raises. A constant: the
-# JAX package's QCT_STREAM_THRESHOLD chooses between two working paths,
-# and the port has only one. QCT_WARP selects the two-mode transform:
-# "fft" (default, spectrally exact) or "gather" (bilinear, scipy's
-# RegularGridInterpolator semantics).
-_STREAM_THRESHOLD = 1 << 28
+# Elements of the contracted (a, d, d, b) tensor above which a two-mode
+# split streams instead of materialising the (a*d, d*b) matrix. QCT_WARP
+# selects the two-mode transform: "fft" (default, spectrally exact) or
+# "gather" (bilinear, scipy's RegularGridInterpolator semantics).
+_STREAM_THRESHOLD = int(os.environ.get("QCT_STREAM_THRESHOLD", 1 << 28))
 _WARP_BACKEND = os.environ.get("QCT_WARP", "fft")
 
 
@@ -71,14 +68,15 @@ def _split(tensor, left, right, opts: SVDOptions, generator):
 
 
 def _use_streamed(a: int, d: int, b: int, opts: SVDOptions) -> bool:
-    """True where the JAX engine would stream the split of an (a, d, d, b)
-    pair (above the threshold, with a bond cap)."""
+    """True where the split of an (a, d, d, b) pair streams: above the
+    threshold, with a bond cap."""
     return opts.max_bond_dim is not None and a * d * d * b > _STREAM_THRESHOLD
 
 
 @full_fp32_matmul()
 def _pair_transform_split(mps, left_index, right_index, warp_params, opts, generator):
-    """Contract neighbours, apply the two-mode grid transform, SVD-split.
+    """Contract neighbours, apply the two-mode grid transform, SVD-split —
+    materialised, or streamed above the threshold.
 
     ``warp_params`` is an :func:`..ops.interp.affine_warp` descriptor; for
     ("swap",) the transform exchanges the modes, so the split is the SWAP
@@ -88,10 +86,15 @@ def _pair_transform_split(mps, left_index, right_index, warp_params, opts, gener
     a, d, _ = t1.shape
     b = t2.shape[-1]
     if _use_streamed(a, d, b, opts):
-        raise NotImplementedError(
-            f"a two-mode split of {a}x{d}x{d}x{b} elements exceeds "
-            f"_STREAM_THRESHOLD = {_STREAM_THRESHOLD}; the streamed split "
-            "(ops/streamed, ROADMAP Queue 1 item 8) is not ported yet")
+        cap = min(opts.max_bond_dim, a * d, d * b)
+        # the reference power-iteration heuristic, under QCT_STREAM_POWER_ITERS
+        q = effective_power_iters(7 if cap + 10 < 0.1 * min(a * d, d * b) else 4)
+        m1, m2, rank = streamed_pair_svd(
+            t1, t2, mps.qs, warp_params, max_bond_dim=opts.max_bond_dim,
+            abs_err=opts.abs_err, rel_err=opts.rel_err, generator=generator,
+            power_iters=q)
+        mps[left_index], mps[right_index] = trim_split(m1, m2, rank)
+        return
     qs = mps.qs
     res = torch.tensordot(t1, t2, dims=([2], [0]))
     if _WARP_BACKEND == "gather" and warp_params[0] in ("rot", "shear"):

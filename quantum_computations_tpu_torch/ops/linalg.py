@@ -102,14 +102,41 @@ def _hermitian_inv_sqrt(G: torch.Tensor, eps_rel: float = 1e-12) -> torch.Tensor
 
 
 @full_fp32_matmul()
-def orthonormalize(Y: torch.Tensor) -> torch.Tensor:
+def _ns_inv_sqrt(G: torch.Tensor, iters: int = 24, ridge: float = 1e-7) -> torch.Tensor:
+    """G^{-1/2} for a small Hermitian PSD matrix by the coupled
+    Newton–Schulz iteration: matmuls only, no eigendecomposition and no
+    host sync. A = G/tr(G) + ridge I has its spectrum in (0, 1]; then
+    T = (3I - Z Y)/2, Y <- Y T, Z <- T Z converges with Z -> A^{-1/2}."""
+    n = G.shape[0]
+    eye = torch.eye(n, dtype=G.dtype, device=G.device)
+    t = torch.trace(G).real + 1e-30
+    Y, Z = G / t + ridge * eye, eye
+    for _ in range(iters):
+        T = 1.5 * eye - 0.5 * (Z @ Y)
+        Y, Z = Y @ T, T @ Z
+    return Z / torch.sqrt(t)
+
+
+@full_fp32_matmul()
+def orthonormalize(Y: torch.Tensor, *, method: str = "eigh") -> torch.Tensor:
     """Tall-skinny orthonormalization: Gram inverse-sqrt, then one
     Newton–Schulz polish Q = Q0 (3I - Q0^H Q0)/2.
 
-    The JAX package's ``method="ns"`` (a matmul-only inverse square root)
-    serves only its streamed split and comes with that path's port.
+    ``method="eigh"`` takes the inverse square root from a float64 eigh
+    (one host sync), with the Gram and Q0 formed in complex128 whatever
+    Y's dtype: a complex64 Gram is off by ~1e-7 of its largest eigenvalue,
+    so in the weak directions that the 1e-12 floor keeps, Q0 would not be
+    orthonormal. ``method="ns"`` runs two passes of the matmul-only
+    :func:`_ns_inv_sqrt` instead (the streamed split's choice: no sync);
+    its ridge damps the weak directions rather than amplifying them.
     """
-    Q = Y @ _hermitian_inv_sqrt(Y.mH @ Y)
+    if method == "ns":
+        Q = Y
+        for _ in range(2):
+            Q = Q @ _ns_inv_sqrt(Q.mH @ Q)
+    else:
+        Y64 = Y.to(torch.complex128 if Y.is_complex() else torch.float64)
+        Q = (Y64 @ _hermitian_inv_sqrt(Y64.mH @ Y64)).to(Y.dtype)
     G2 = Q.mH @ Q
     eye = torch.eye(G2.shape[0], dtype=G2.dtype, device=G2.device)
     return Q @ (1.5 * eye - 0.5 * G2)

@@ -350,20 +350,6 @@ def test_two_mode_gate_randomized_path_with_shared_sketch(monkeypatch):
     _same_state(tm, jm, GATE_TOL)
 
 
-def test_two_mode_split_above_stream_threshold_raises(monkeypatch):
-    opts = tconfig.SVDOptions(max_bond_dim=100)
-    assert tg._STREAM_THRESHOLD == 1 << 28
-    assert tg._use_streamed(100, 1000, 100, opts)       # interior pair at chi = 100
-    assert not tg._use_streamed(1, 1000, 100, opts)     # a pair at an end of the chain
-    assert not tg._use_streamed(100, 1000, 100, tconfig.SVDOptions())
-    monkeypatch.setattr(tg, "_STREAM_THRESHOLD", len(QS) ** 2)  # CZ(0, 1): 1 x 96 x 96 x 2
-    _, tm = _pair(_random_chain(10))
-    before = [t.clone() for t in tm.tensors]
-    with pytest.raises(NotImplementedError, match="streamed"):
-        tg.CZ(0, 1).apply(tm, generator=torch.Generator(), svd_options=opts)
-    assert all(torch.equal(a, b) for a, b in zip(before, tm.tensors))
-
-
 # ---------------------------------------------------------------------------
 # whole circuits through the Simulator
 # ---------------------------------------------------------------------------

@@ -603,6 +603,9 @@ def test_port_imports_no_jax():
             "import quantum_computations_tpu_torch.cv\n"
             "import quantum_computations_tpu_torch.ops.linalg\n"
             "import quantum_computations_tpu_torch.ops.interp\n"
+            "import quantum_computations_tpu_torch.ops.streamed\n"
+            "import quantum_computations_tpu_torch.dv.simulator\n"
+            "import quantum_computations_tpu_torch.gkp\n"
             "import quantum_computations_tpu_torch.utils\n"
             "new = set(sys.modules) - before\n"
             "bad = sorted(m for m in new if m.split('.')[0] in "
