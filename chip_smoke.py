@@ -35,6 +35,19 @@ default threshold against the materialised split (the JAX test's
 criteria), and one of 10^10 elements, the size the streamed path is for
 (its time, peak memory and error).
 
+Then the production GKP trajectory engine, ``BatchedGKP(qs, epsilon,
+svd_options, adaptive=True, granularity="op").run_circuit(...)`` and its
+``readout``, on bench.py's workload: the depth-8 two-qubit RB circuit
+``random_circ(2, 8, default_rng(123))``, d = 1000, 10 dB, bond cap 100,
+rel_err 1e-2, 16 trajectories (phase 9): 9a the largest fused single
+gadget and pair measure of the run (the pair by each of its four paths)
+in complex64 against complex128, their times and peak memory; 9b the
+batch's time, host syncs, peak memory, device-busy share and per-op
+times from a trace, its op counts and largest bond pairs, and each
+trajectory's fidelity to the DV state; 9c one trajectory in complex64
+and two controls against complex128 with the draws replayed; 9d, when a
+split streams, the largest streamed split by both BS routes.
+
 Prints one line per phase with its wall time, JSON lines of the paths'
 numbers, then the card's name and power limit, a JSON line of per-kernel
 numbers, and as its last line ``{"ok": true, "device": {...}}``. Any
@@ -1236,6 +1249,358 @@ def streamed_split_check() -> dict:
     return out
 
 
+# -- the batched GKP trajectory engine -------------------------------------
+# bench.py's production workload (bench.py:80-96, pipelines/rb_batched.py):
+# the depth-8 two-qubit RB circuit random_circ(2, 8, default_rng(123)) at
+# d = 1000 on [-20, 20], 10 dB, chi = 100, rel_err 1e-2, 16 trajectories,
+# through BatchedGKP's production defaults (op granularity, adaptive trims,
+# fused single and pair gadgets, host rank tracking).
+RB_DEPTH = 8
+RB_BATCH = 16
+RB_CIRCUIT_SEED = 123
+RB_SEED = 0
+RB_FID_MIN = 0.5       # mean fidelity to the DV state of the timed batch
+RB_TPU_CELL = ("round-5 TPU dataset, 10 dB depth 8: fused engine 0.9082 "
+               "(SE 0.0141, n = 112, benchmarks/gkp_rb_fused_10.0_d8.dat.meta.json), "
+               "reference 0.8783 (n = 200, benchmarks/gkp_rb_tpu_summary.json)")
+# complex64 vs complex128 limits of one replayed trajectory (9c): 1 -
+# fidelity of the final state, max |rho_c64 - rho_c128| of the corrected
+# logical density and the largest relative difference of a drawn bin's
+# probability. On an H100 the sound readings were 4.7e-13, 7.9e-7, 8.3e-7;
+# the tables_f32 control's 2.4e-13, 5.5e-7, 4.7e-6 and the env_c64
+# control's 3.8e-13, 4.7e-7, 9.8e-7 (PERF.md §6). Only the probability
+# separates (tables_f32), so its limit sits near the geometric mean and
+# must catch that control; the other two are ~20x the sound reading, the
+# rule of the CV limits where no control separates.
+RB_LIMITS = (1e-11, 1.5e-5, 2e-6)
+RB_TRACE_DIR = os.path.join("profile_traces", "rb")  # ignored by git
+
+
+def rb_workload():
+    """(DV gates, transpiled circuit, engine) of bench.py's workload."""
+    from quantum_computations_tpu_torch.gkp.batched import BatchedGKP
+    from quantum_computations_tpu_torch.pipelines.rb import random_circ
+    dv_circ, gkp_circ = random_circ(2, RB_DEPTH, np.random.default_rng(RB_CIRCUIT_SEED))
+    runner = BatchedGKP(CV_QS, CV_EPS, {"rel_err": 1e-2, "max_bond_dim": 100},
+                        adaptive=True, granularity="op", device="cuda")
+    return dv_circ, gkp_circ, runner
+
+
+def rb_run(runner, gkp_circ, batch=RB_BATCH, seed=RB_SEED):
+    """One batch of trajectories and its readout: (tensors, frames, rho
+    (complex128 numpy, raw), syndromes per gadget)."""
+    from quantum_computations_tpu_torch.dv import State
+    from quantum_computations_tpu_torch.gkp.compiled import logical_coeffs
+    tensors, frames = runner.run_circuit(gkp_circ, logical_coeffs([State.ZERO] * 2),
+                                         batch, rng_seed=seed)
+    re, im = runner.readout(tensors, frames)
+    rho = re.double().cpu().numpy() + 1j * im.double().cpu().numpy()
+    return tensors, frames, rho
+
+
+@contextlib.contextmanager
+def largest_inputs():
+    """Inside the block the inputs of the largest fused single gadget and
+    of the largest fused pair measure (by bond product) that the engine
+    runs are kept: {"single": (args, a*k), "pair": (args, a*c)}."""
+    from quantum_computations_tpu_torch.gkp import batched
+    kept = {}
+    real = {"single": batched.fused_single_gadget, "pair": batched.fused_pair_measure2}
+
+    def keep(kind):
+        def call(tensors, i, *args, **kw):
+            size = tensors[i].shape[1] * tensors[i + (kind == "pair")].shape[-1]
+            if size > kept.get(kind, (None, -1))[1]:
+                kept[kind] = ((list(tensors), i) + args[:-1], size)
+            return real[kind](tensors, i, *args, **kw)
+        return call
+
+    with patched(batched, "fused_single_gadget", keep("single")), \
+            patched(batched, "fused_pair_measure2", keep("pair")):
+        yield kept
+
+
+@contextlib.contextmanager
+def rb_tape(replay=None):
+    """Inside the block the fused gadgets' and homodynes' drawn indices and
+    the split sketches are recorded (on the host), or with ``replay`` (an
+    earlier tape) replayed in the same order; either way each draw's
+    probability (its bin of the distribution) is kept."""
+    from quantum_computations_tpu_torch.gkp import compiled
+    from quantum_computations_tpu_torch.ops import fused_gadget as fg, linalg, streamed
+    tape = {"draw": [], "rsvd": [], "stream": [], "prob": []}
+    it = None if replay is None else {k: iter(replay[k]) for k in ("draw", "rsvd", "stream")}
+    real = {"draw": fg._draw, "rsvd": linalg._gaussian_sketch,
+            "stream": streamed._stream_sketch}
+    host = torch.empty(0, dtype=torch.float64)
+
+    def draw(dist, forced, generator):
+        if it is not None:
+            idx = next(it["draw"]).to(dist.device)
+        else:
+            idx = real["draw"](dist, forced, generator)
+            tape["draw"].append(idx.cpu())
+        tape["prob"].append(fg._at(dist, idx).double().cpu())
+        return idx
+
+    def sketch(kind):
+        def call(*args):
+            *shape_gen, like = args
+            o = next(it[kind]) if it is not None else real[kind](*shape_gen, host)
+            if it is None:
+                tape[kind].append(o)
+            return o.to(device=like.device, dtype=like.dtype)
+        return call
+
+    with patched(fg, "_draw", draw), patched(compiled, "_draw", draw), \
+            patched(linalg, "_gaussian_sketch", sketch("rsvd")), \
+            patched(streamed, "_stream_sketch", sketch("stream")):
+        yield tape
+
+
+@contextlib.contextmanager
+def rb_control():
+    """Control: every grid table of the fused gadgets (the stretched sinc
+    sampling matrices, Fourier phases, rotation kernels) and of
+    ``ops/interp`` formed from a float32 grid."""
+    from quantum_computations_tpu_torch.ops import fused_gadget as fg, interp
+    from quantum_computations_tpu_torch.config import to_device
+    with patched(fg, "_grid", lambda qs, device: to_device(
+            np.asarray(qs, np.float32).astype(np.float64), device)), \
+            cv_control("tables_f32"):
+        yield
+
+
+@contextlib.contextmanager
+def env_c64():
+    """Control: the fused gadgets' chain environments (and so their
+    Newton-Schulz square roots) in the working dtype, complex64, the JAX
+    package's form, instead of complex128."""
+    from quantum_computations_tpu_torch.ops import fused_gadget as fg
+
+    def left(tensors, like):
+        res = like.new_ones((like.shape[0], 1, 1))
+        for t in tensors:
+            res = torch.einsum("zab,zaci,zbcj->zij", res, t, t.conj())
+        return res
+
+    def right(tensors, like):
+        res = like.new_ones((like.shape[0], 1, 1))
+        for t in reversed(tensors):
+            res = torch.einsum("zica,zjcb,zab->zij", t, t.conj(), res)
+        return res
+
+    with patched(fg, "_left_env", left), patched(fg, "_right_env", right):
+        yield
+
+
+def rb_state_fidelity(a, b) -> float:
+    """|<a|b>|^2 / (<a|a><b|b>) of two one-trajectory batched chains, in
+    complex128."""
+    from quantum_computations_tpu_torch.cv import MPS
+    return cv_fidelity(MPS(CV_QS, [t[0] for t in a]), MPS(CV_QS, [t[0] for t in b]))
+
+
+def fused_at_width(kept) -> dict:
+    """9a: the largest fused single gadget and pair measure of the run, at
+    its batch, in complex128 (drawn) and complex64 (forced to those
+    indices), the pair by each of its four paths (gram on): the complex64
+    outputs against complex128, ms per call (complex64, after a warm-up)
+    and peak memory."""
+    from quantum_computations_tpu_torch.ops import fused_gadget as fg
+    out = {}
+    cases = {"single": (fg.fused_single_gadget, kept["single"][0], {})}
+    pair_args = kept["pair"][0]
+    for path, (a1, a2, prerot) in {"a1zero": (0.0, np.arctan(2), True),
+                                   "swapped": (-np.pi / 2, 0.0, True),
+                                   "prerot": (np.arctan(2), -np.arctan(2), True),
+                                   "exact": (np.arctan(2), -np.arctan(2), False)}.items():
+        cases[f"pair[{path}]"] = (fg.fused_pair_measure2,
+                                  pair_args[:3] + (float(a1), float(a2)),
+                                  {"prerot": prerot, "gram": True})
+    for name, (fn, args, kw) in cases.items():
+        tensors, rest = args[0], args[1:]
+        if name == "single":  # bell vectors in the chain's dtype
+            rest = rest[:2] + (rest[2].to(torch.complex128),) + rest[3:]
+        t128 = [t.to(torch.complex128) for t in tensors]
+        ref = fn(t128, *rest, torch.Generator().manual_seed(9), diagnostics=True, **kw)
+        force = (ref[3]["i"], ref[3]["j"])
+        if ref[3].get("swapped"):
+            force = force[::-1]
+        t64 = [t.to(torch.complex64) for t in tensors]
+        rest64 = rest if name != "single" else rest[:2] + (rest[2].to(torch.complex64),) + rest[3:]
+        call = lambda: fn(t64, *rest64, force=force, diagnostics=True, **kw)  # noqa: E731
+        got = call()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t = time.perf_counter()
+        call()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+        peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+        errs = [float((g.to(torch.complex128) - r).abs().max() / r.abs().max())
+                for g, r in zip(got[0], ref[0])]
+        p_err = max(float(((got[3][k].double() - ref[3][k]).abs() / ref[3][k]).max())
+                    for k in ("p1", "p2"))
+        shape = [tuple(x.shape) for x in tensors]
+        out[name] = {"chain": shape, "ms_per_call": ms, "peak_gib_above_inputs": peak,
+                     "max_rel_tensor_err_c64": max(errs), "max_rel_prob_err_c64": p_err}
+        log(f"9a {name} on {shape}: {ms:.3f} ms per call (batch {shape[0][0]}), "
+            f"peak {peak:.3f} GiB above its inputs; complex64 vs complex128: "
+            f"max rel tensor err {max(errs):.3e}, max rel prob err {p_err:.3e}")
+        if not max(errs) < 1e-3:
+            raise AssertionError(f"9a {name}: complex64 off by {max(errs)}")
+    return out
+
+
+def trajectory_c64_vs_c128(gkp_circ) -> dict:
+    """9c: one trajectory of the circuit in complex128 (drawn), then in
+    complex64 and in complex64 under the tables_f32 control with its
+    indices and sketches replayed: 1 - fidelity of the final state, max
+    |rho diff| of the corrected logical density, syndromes equal."""
+    from quantum_computations_tpu_torch.gkp.batched import BatchedGKP
+
+    def engine():
+        return BatchedGKP(CV_QS, CV_EPS, {"rel_err": 1e-2, "max_bond_dim": 100},
+                          adaptive=True, granularity="op", device="cuda")
+
+    with x64_dtype(), rb_tape() as tape:
+        ref_t, ref_f, ref_rho = rb_run(engine(), gkp_circ, batch=1, seed=RB_SEED + 1)
+    out = {"draws": len(tape["draw"]), "sketches": len(tape["rsvd"]) + len(tape["stream"])}
+    for label, ctx in (("c64", contextlib.nullcontext()), ("env_c64", env_c64()),
+                       ("tables_f32", rb_control())):
+        with rb_tape(tape) as c_tape, ctx:
+            t, f, rho = rb_run(engine(), gkp_circ, batch=1, seed=RB_SEED + 1)
+        if t[0].dtype != torch.complex64 or ref_t[0].dtype != torch.complex128:
+            raise AssertionError(f"9c ran {t[0].dtype} against {ref_t[0].dtype}")
+        out[label] = {"infidelity": 1 - rb_state_fidelity(ref_t, t),
+                      "rho_max_abs_diff": float(np.abs(rho - ref_rho).max()),
+                      "max_rel_prob_diff": max_rel_diff(
+                          [float(p) for p in torch.cat(c_tape["prob"])],
+                          [float(p) for p in torch.cat(tape["prob"])]),
+                      "frames_equal": bool((f == ref_f).all())}
+    log(f"9c one trajectory, complex64 vs complex128 (indices and sketches "
+        f"replayed): {out}; limits (1 - fidelity, max |rho diff|, max rel "
+        f"prob diff): {RB_LIMITS}")
+    if not out["c64"]["frames_equal"]:
+        raise AssertionError("9c: complex64 frames differ from complex128")
+
+    def inside(r):
+        return all(r[k] < limit for k, limit in zip(
+            ("infidelity", "rho_max_abs_diff", "max_rel_prob_diff"), RB_LIMITS))
+
+    if not inside(out["c64"]):
+        raise AssertionError(f"9c: complex64 {out['c64']} outside {RB_LIMITS}")
+    out["caught"] = {c: not inside(out[c]) for c in ("env_c64", "tables_f32")}
+    if not out["caught"]["tables_f32"]:
+        raise AssertionError(f"9c: the tables_f32 control {out['tables_f32']} "
+                             f"passes the limits {RB_LIMITS}")
+    return out
+
+
+def streamed_routes(kept_split) -> dict:
+    """9d: the run's largest streamed split by both BS routes: ms and kept
+    ranks."""
+    from quantum_computations_tpu_torch.ops import streamed
+    t1, t2, angle = kept_split
+    q = torch.as_tensor(CV_QS, dtype=torch.float64, device="cuda")
+    out = {"pair": [int(t1.shape[1]), int(t2.shape[-1])]}
+    for route in ("rot", "cz"):
+        with bs_decomp(route):
+            gen = torch.Generator().manual_seed(3)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            _, _, ranks = streamed.streamed_pair_svd_batched(
+                t1, t2, q, ("rot", angle), max_bond_dim=100, abs_err=0.0,
+                rel_err=1e-2, generator=gen, power_iters=streamed.effective_power_iters(4))
+            torch.cuda.synchronize()
+            out[route] = {"ms": (time.perf_counter() - t) * 1e3, "ranks": ranks.tolist()}
+    log(f"9d the largest streamed split by route: {out}")
+    return out
+
+
+def rb_path() -> dict:
+    """Phase 9: bench.py's workload through BatchedGKP on the card."""
+    from quantum_computations_tpu_torch.gkp import compiled
+    from quantum_computations_tpu_torch.pipelines.rb_batched import _dv_state_np, _score_batch
+    from quantum_computations_tpu_torch.utils import maybe_trace
+    dv_circ, gkp_circ, runner = rb_workload()
+    result = {"circuit": [f"{type(g).__name__}{tuple(g.indices)}" for g in dv_circ],
+              "layers": gkp_circ.depth(), "batch": RB_BATCH, "grid": len(CV_QS),
+              "max_bond_dim": 100, "rel_err": 1e-2, "epsilon": CV_EPS}
+    split_kept = {}
+    real_split = compiled.streamed_pair_svd_batched
+
+    def keep_split(t1, t2, q, warp, **kw):
+        if t1.shape[1] * t2.shape[-1] > split_kept.get("size", 0):
+            split_kept.update(size=t1.shape[1] * t2.shape[-1], args=(t1, t2, warp[1]))
+        return real_split(t1, t2, q, warp, **kw)
+
+    with Phase("9b warm-up (keeps the largest fused inputs)"):
+        with largest_inputs() as kept, patched(compiled, "streamed_pair_svd_batched", keep_split):
+            rb_run(runner, gkp_circ)
+        torch.cuda.synchronize()
+    with Phase("9a fused gadgets at production width"):
+        result["fused_at_width"] = fused_at_width(kept)
+        del kept
+    with Phase(f"9b the trajectory engine, batch {RB_BATCH}"):
+        runner.counts.clear()
+        runner.largest.clear()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        _, frames, rho = rb_run(runner, gkp_circ)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        counts, largest = dict(runner.counts), dict(runner.largest)
+        syncs = count_syncs(lambda: rb_run(runner, gkp_circ))
+        with maybe_trace(RB_TRACE_DIR):
+            rb_run(runner, gkp_circ)
+        trace = trace_summary(RB_TRACE_DIR, prefix="op:")
+        rows, dropped = _score_batch(rho.real, rho.imag, _dv_state_np(dv_circ, 2), 10.0, RB_DEPTH)
+        traces = np.trace(rho, axis1=1, axis2=2).real
+        fids = [r["fidelity"] for r in rows]
+        mean, se = float(np.mean(fids)), float(np.std(fids) / np.sqrt(len(fids)))
+        result.update({
+            "seconds_per_batch": seconds, "seconds_per_trajectory": seconds / RB_BATCH,
+            "trajectories_per_second": RB_BATCH / seconds,
+            "host_syncs_per_trajectory": syncs / RB_BATCH, "host_syncs_per_batch": syncs,
+            "max_memory_allocated_gib": peak,
+            "device_busy_share": trace["device_busy_share"],
+            "traced_window_ms": trace["window_ms"], "per_op": trace["per_class"],
+            "counts": counts, "largest": largest,
+            "trace_range": [float(traces.min()), float(traces.max())],
+            "dropped": dropped, "mean_fidelity": mean, "fidelity_se": se,
+            "tpu_reference_cell": RB_TPU_CELL})
+        log(f"9b {RB_BATCH} trajectories of {result['circuit']} ({result['layers']} "
+            f"layers): {seconds:.3f} s per batch, {seconds / RB_BATCH:.4f} s per "
+            f"trajectory, {RB_BATCH / seconds:.4f} trajectories/s; host syncs "
+            f"{syncs} ({syncs / RB_BATCH:.2f} per trajectory); peak "
+            f"{peak:.3f} GiB; device busy {trace['device_busy_share']:.4f} of "
+            f"{trace['window_ms']:.1f} ms traced; counts {counts}; largest "
+            f"(a, b) {largest}")
+        log(f"9b per op span (host ms / device ms): " + "; ".join(
+            f"{k} x{v['calls']} {v['host_ms']:.1f} / {v['device_ms']:.1f}"
+            for k, v in sorted(trace["per_class"].items(), key=lambda kv: -kv[1]["host_ms"])))
+        log(f"9b raw traces in [{traces.min():.6f}, {traces.max():.6f}], dropped "
+            f"{dropped}; mean fidelity to the DV state {mean:.4f} (SE {se:.4f}, "
+            f"n = {len(fids)}); for scale, {RB_TPU_CELL}")
+        if dropped or not np.all(np.isfinite(traces)) or not np.all(traces > 0):
+            raise AssertionError(f"9b: traces {traces}")
+        if not mean > RB_FID_MIN:
+            raise AssertionError(f"9b: mean fidelity {mean} <= {RB_FID_MIN}")
+        if counts.get("fused_single", 0) < 1 or not any(k.startswith("fused_pair") for k in counts):
+            raise AssertionError(f"9b ran no fused gadget: {counts}")
+    with Phase("9c complex64 vs complex128, one trajectory"):
+        result["c64_vs_c128"] = trajectory_c64_vs_c128(gkp_circ)
+    if "args" in split_kept:
+        with Phase("9d the largest streamed split by both BS routes"):
+            result["streamed_routes"] = streamed_routes(split_kept["args"])
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1652,6 +2017,8 @@ def main() -> int:
     print(json.dumps({"cv_path": cv, "card": card}), flush=True)
     gkp_result = gkp_path()
     print(json.dumps({"gkp_path": gkp_result, "card": card}), flush=True)
+    rb_result = rb_path()
+    print(json.dumps({"rb_path": rb_result, "card": card}), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

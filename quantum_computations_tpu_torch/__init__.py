@@ -20,7 +20,12 @@ Ported so far:
   streamed (:mod:`.ops.streamed`) without forming the split matrix;
 - the eager measurement-based GKP engine (:mod:`.gkp`: transpiler,
   gadgets, Bell insertion, ``gkp.Simulator``, logical readout) with the
-  DV toolbox :mod:`.dv.qop` and :class:`.dv.Simulator` it needs.
+  DV toolbox :mod:`.dv.qop` and :class:`.dv.Simulator` it needs;
+- the production GKP trajectory engine
+  :class:`.gkp.batched.BatchedGKP` (op granularity, adaptive trims, the
+  SVD-free fused gadgets of :mod:`.ops.fused_gadget`, host rank
+  tracking) with the :mod:`.gkp.compiled` helpers and the RB pipelines
+  :mod:`.pipelines.rb` and :mod:`.pipelines.rb_batched`.
 """
 
 from . import config

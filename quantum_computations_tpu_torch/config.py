@@ -32,6 +32,16 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
     return dev
 
 
+def to_device(x, device: str | torch.device) -> torch.Tensor:
+    """A host array or CPU tensor on ``device``. On CUDA the copy is staged
+    through pinned memory and does not wait for the device (a copy from
+    pageable memory synchronises)."""
+    t = torch.as_tensor(x)
+    if torch.device(device).type == "cuda" and t.device.type == "cpu":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
+
+
 def _x64(device: str | torch.device | None) -> bool:
     env = os.environ.get("QCT_X64")
     if env:

@@ -74,13 +74,16 @@ def splice_product_segment(t1, b1, b2):
         b2'[(beta, c), y, beta'] = delta(beta, beta') b2[c, y]
 
     Broadcast products with the identity: every entry is an exact copy or
-    an exact zero. The next two-mode gate's split truncates the 2r bond.
+    an exact zero. b1 (..., d, 2) and b2 (..., 2, d) may carry leading
+    batch axes (one pair per trajectory). The next two-mode gate's split
+    truncates the 2r bond.
     """
     r = t1.shape[-1]
-    d = b1.shape[0]
+    d = b1.shape[-2]
+    batch = b1.shape[:-2]
     eye = torch.eye(r, dtype=t1.dtype, device=t1.device)
-    b1_t = (eye[:, None, :, None] * b1[None, :, None, :]).reshape(r, d, 2 * r)
-    b2_t = (eye[:, None, None, :] * b2[None, :, :, None]).reshape(2 * r, d, r)
+    b1_t = (eye[:, None, :, None] * b1[..., None, :, None, :]).reshape(*batch, r, d, 2 * r)
+    b2_t = (eye[:, None, None, :] * b2[..., None, :, :, None]).reshape(*batch, 2 * r, d, r)
     return b1_t, b2_t
 
 

@@ -17,7 +17,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..config import full_fp32_matmul
+from ..config import full_fp32_matmul, to_device
 from ..cv.mps import MPS, tensor_svd
 from ..dv import qop
 
@@ -94,32 +94,41 @@ _LOGICAL_PAULIS = np.stack([
 
 
 @full_fp32_matmul()
+def logical_density_batch(tensors, qs) -> torch.Tensor:
+    """Logical density matrices (B, 2^N, 2^N) of a batch of N-mode GKP
+    chains, tensors (B, l, d, r) on the grid ``qs``, in their dtype on
+    their device; not normalised."""
+    qs = np.asarray(qs)
+    dq = (qs[-1] - qs[0]) / len(qs)  # the reference's convention
+    like = tensors[0]
+    Pms = to_device(pauli_measurement_operators(qs), like.device).to(like.dtype)
+
+    N = len(tensors)
+    B = like.shape[0]
+    # C has axes (batch, p_1, ..., p_k, e), e the flattened (i, j) bond pair
+    C = like.new_ones((B, 1))
+    for m in tensors:
+        a, b = m.shape[1], m.shape[3]
+        # E[p, (a b), (i j)] = sum_{c,d'} m[a,c,i] conj(m)[b,d',j] Pms[p,d',c]
+        tmp = torch.einsum("zaci,pdc->zpadi", m, Pms)
+        E = torch.einsum("zpadi,zbdj->zpabij", tmp, m.conj()).reshape(B, 4, a * a, b * b)
+        C = torch.einsum("z...e,zpef->z...pf", C, E)
+    C = C.reshape((B,) + (4,) * N) * (dq / 2) ** N
+
+    # rho = sum_p C[p] kron_k Ps[p_k]
+    Ps = to_device(_LOGICAL_PAULIS, like.device).to(like.dtype)
+    rho = C
+    for _ in range(N):
+        rho = torch.einsum("zp...,pij->z...ij", rho, Ps)
+    # axes (batch, i_1, j_1, ..., i_N, j_N) -> (B, 2^N, 2^N)
+    perm = [0] + list(range(1, 2 * N + 1, 2)) + list(range(2, 2 * N + 1, 2))
+    return rho.permute(perm).reshape(B, 2**N, 2**N)
+
+
 def full_logical_density_mps(mps: MPS, normalised: bool = False) -> torch.Tensor:
     """Logical density matrix (2^N, 2^N) of an N-mode GKP MPS, in the
     MPS's dtype on its device."""
-    qs = np.asarray(mps.domain)
-    dq = (qs[-1] - qs[0]) / len(qs)  # the reference's convention
-    Pms = torch.from_numpy(pauli_measurement_operators(qs)).to(mps.device, mps.dtype)
-
-    N = len(mps)
-    # C has axes (p_1, ..., p_k, e), e the flattened (i, j) bond pair
-    C = torch.ones(1, dtype=mps.dtype, device=mps.device)
-    for m in mps:
-        a, _, b = m.shape
-        # E[p, (a b), (i j)] = sum_{c,d'} m[a,c,i] conj(m)[b,d',j] Pms[p,d',c]
-        tmp = torch.einsum("aci,pdc->padi", m, Pms)
-        E = torch.einsum("padi,bdj->pabij", tmp, m.conj()).reshape(4, a * a, b * b)
-        C = torch.einsum("...e,pef->...pf", C, E)
-    C = C.reshape((4,) * N) * (dq / 2) ** N
-
-    # rho = sum_p C[p] kron_k Ps[p_k]
-    Ps = torch.from_numpy(_LOGICAL_PAULIS).to(mps.device, mps.dtype)
-    rho = C
-    for _ in range(N):
-        rho = torch.tensordot(rho, Ps, dims=([0], [0]))
-    # axes (i_1, j_1, ..., i_N, j_N) -> (2^N, 2^N)
-    perm = list(range(0, 2 * N, 2)) + list(range(1, 2 * N, 2))
-    rho = rho.permute(perm).reshape(2**N, 2**N)
+    rho = logical_density_batch([t[None] for t in mps.tensors], mps.domain)[0]
     if normalised:
         rho = rho / torch.trace(rho)
     return rho

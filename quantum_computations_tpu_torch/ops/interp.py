@@ -20,9 +20,10 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
-from ..config import full_fp32_matmul
+from ..config import full_fp32_matmul, to_device
 
 
 def _f64(x, like: torch.Tensor) -> torch.Tensor:
@@ -57,20 +58,35 @@ interpolate = whittaker_shannon
 @full_fp32_matmul()
 def rotation(qs, tensor: torch.Tensor, theta, axis: int = 0, new_qs=None) -> torch.Tensor:
     """Fractional-Fourier (phase-space rotation) by `theta` along `axis`,
-    a dense rotated-eigenstate kernel matmul; needs sin(theta) != 0."""
+    a dense rotated-eigenstate kernel matmul; needs sin(theta) != 0.
+
+    ``theta`` is a number, or one angle per trajectory (a 1-D array or
+    tensor of length ``tensor.shape[0]``, the batch axis; ``axis`` >= 1):
+    each trajectory is then rotated by its own angle.
+    """
     qs = _f64(qs, tensor)
     new_qs = qs if new_qs is None else _f64(new_qs, tensor)
-    theta = float(theta)
+    if not isinstance(theta, torch.Tensor) and np.ndim(theta) == 0:
+        theta = float(theta)
+        cos, sin = math.cos(theta), math.sin(theta)
+    else:
+        if not isinstance(theta, torch.Tensor):
+            theta = to_device(np.asarray(theta, np.float64), tensor.device)
+        theta = _f64(theta, tensor)[:, None, None]
+        cos, sin = torch.cos(theta), torch.sin(theta)
     exponent = (
-        math.cos(theta) * ((qs**2)[:, None] + (new_qs**2)[None, :]) / 2.0
+        cos * ((qs**2)[:, None] + (new_qs**2)[None, :]) / 2.0
         - torch.outer(qs, new_qs)
     )
-    kernel = (2 * math.pi * abs(math.sin(theta))) ** -0.5 * torch.exp(
-        exponent / (1j * math.sin(theta))
-    )
+    kernel = (2 * math.pi * abs(sin)) ** -0.5 * torch.exp(exponent / (1j * sin))
     kernel = (kernel * _spacing(qs)).to(_complex_of(tensor.dtype))
-    res = torch.tensordot(kernel, tensor.to(kernel.dtype), dims=([0], [axis]))
-    return torch.movedim(res, 0, axis)
+    if kernel.ndim == 2:
+        res = torch.tensordot(kernel, tensor.to(kernel.dtype), dims=([0], [axis]))
+        return torch.movedim(res, 0, axis)
+    x = torch.movedim(tensor.to(kernel.dtype), axis, -1)
+    res = (x.reshape(x.shape[0], -1, x.shape[-1]) @ kernel).reshape(
+        *x.shape[:-1], kernel.shape[-1])
+    return torch.movedim(res, -1, axis)
 
 
 def CFT(qs, tensor: torch.Tensor, axis: int = 0):

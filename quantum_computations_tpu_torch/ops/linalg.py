@@ -6,6 +6,11 @@ singular directions zero-masked; :func:`trim_split` then slices them down
 to the (bucketed) kept rank, which it reads on the host: one device sync
 per split, as in the JAX engine's eager mode.
 
+Every function takes leading batch axes (one matrix per trajectory of
+the batched GKP engine) as well as a single matrix; whatever depends on
+a matrix's values (traces, eigenvalue floors, kept ranks) is taken per
+matrix.
+
 The thin SVD (:func:`svd_compat`) dispatches by device, as the JAX
 package's does: ``torch.linalg.svd`` (LAPACK) on the CPU, and on CUDA
 :func:`svd_gram`, the Hermitian eigendecomposition of the Gram matrix on
@@ -25,7 +30,7 @@ import math
 
 import torch
 
-from ..config import full_fp32_matmul
+from ..config import full_fp32_matmul, to_device
 
 # Fixed oversampling for the randomized SVD.
 OVERSAMPLE = 10
@@ -45,19 +50,26 @@ def svd_gram(A: torch.Tensor):
     the Gram of a rank-deficient two-mode split of a three-mode circuit
     without it.
     """
-    m, n = A.shape
+    m, n = A.shape[-2:]
     if m < n:
         U, s, Vh = svd_gram(A.mH)
         return Vh.mH.resolve_conj(), s, U.mH.resolve_conj()
     A64 = A.to(torch.complex128 if A.is_complex() else torch.float64)
     G = A64.mH @ A64
-    G.diagonal().add_(torch.arange(n, dtype=torch.float64, device=G.device)
-                      * (1e-15 * torch.trace(G).real / n**2))
+    G.diagonal(dim1=-2, dim2=-1).add_(
+        torch.arange(n, dtype=torch.float64, device=G.device)
+        * (1e-15 * _trace(G).real / n**2)[..., None])
     w, V = torch.linalg.eigh(G)  # ascending
-    w, V = w.flip(0), V.flip(1)
+    w, V = w.flip(-1), V.flip(-1)
     s = torch.sqrt(torch.clamp(w, min=0.0))
-    U = (A64 @ V) / torch.where(s > 0, s, torch.ones_like(s))[None, :]
+    U = (A64 @ V) / torch.where(s > 0, s, torch.ones_like(s))[..., None, :]
     return U.to(A.dtype), s.to(A.real.dtype), V.mH.resolve_conj().to(A.dtype)
+
+
+def _trace(G: torch.Tensor) -> torch.Tensor:
+    """The trace of each matrix of a batch."""
+    return G.diagonal(dim1=-2, dim2=-1).sum(-1)
+
 
 
 def svd_compat(A: torch.Tensor, full_matrices: bool = False):
@@ -95,10 +107,10 @@ def _hermitian_inv_sqrt(G: torch.Tensor, eps_rel: float = 1e-12) -> torch.Tensor
     float64 (complex eigh directly; the JAX package realifies for its TPU).
     Eigenvalues at or below ``max(w) * eps_rel`` are dropped."""
     w, V = torch.linalg.eigh(G.to(torch.complex128 if G.is_complex() else torch.float64))
-    floor = w.max() * eps_rel
-    inv_sqrt_w = torch.where(w > floor, torch.clamp(w, min=floor).rsqrt(),
+    floor = w.amax(-1, keepdim=True) * eps_rel
+    inv_sqrt_w = torch.where(w > floor, torch.maximum(w, floor).rsqrt(),
                              torch.zeros_like(w))
-    return ((V * inv_sqrt_w.to(V.dtype)[None, :]) @ V.mH).to(G.dtype)
+    return ((V * inv_sqrt_w.to(V.dtype)[..., None, :]) @ V.mH).to(G.dtype)
 
 
 @full_fp32_matmul()
@@ -107,9 +119,9 @@ def _ns_inv_sqrt(G: torch.Tensor, iters: int = 24, ridge: float = 1e-7) -> torch
     Newton–Schulz iteration: matmuls only, no eigendecomposition and no
     host sync. A = G/tr(G) + ridge I has its spectrum in (0, 1]; then
     T = (3I - Z Y)/2, Y <- Y T, Z <- T Z converges with Z -> A^{-1/2}."""
-    n = G.shape[0]
+    n = G.shape[-1]
     eye = torch.eye(n, dtype=G.dtype, device=G.device)
-    t = torch.trace(G).real + 1e-30
+    t = (_trace(G).real + 1e-30)[..., None, None]
     Y, Z = G / t + ridge * eye, eye
     for _ in range(iters):
         T = 1.5 * eye - 0.5 * (Z @ Y)
@@ -138,7 +150,7 @@ def orthonormalize(Y: torch.Tensor, *, method: str = "eigh") -> torch.Tensor:
         Y64 = Y.to(torch.complex128 if Y.is_complex() else torch.float64)
         Q = (Y64 @ _hermitian_inv_sqrt(Y64.mH @ Y64)).to(Y.dtype)
     G2 = Q.mH @ Q
-    eye = torch.eye(G2.shape[0], dtype=G2.dtype, device=G2.device)
+    eye = torch.eye(G2.shape[-1], dtype=G2.dtype, device=G2.device)
     return Q @ (1.5 * eye - 0.5 * G2)
 
 
@@ -151,7 +163,7 @@ def _gaussian_sketch(n: int, l: int, generator: torch.Generator | None,
         raise ValueError("randomized SVD requires a torch.Generator")
     o = torch.randn((n, l), generator=generator, dtype=torch.float64,
                     device=generator.device)
-    return o.to(device=like.device, dtype=like.dtype, non_blocking=True)
+    return to_device(o, like.device).to(like.dtype)
 
 
 @full_fp32_matmul()
@@ -159,12 +171,17 @@ def randomized_range_finder(A: torch.Tensor, l: int, q: int,
                             generator: torch.Generator | None = None, *,
                             sketch=None) -> torch.Tensor:
     """Find Q (n x l) with Q Q^H A ~= A via Gaussian sketch + q power
-    iterations. ``sketch`` (an (A.shape[1], l) real array) replaces the
-    draw from ``generator``."""
-    if sketch is None:
+    iterations. ``sketch`` (an (A.shape[-1], l) real array, per matrix of
+    a batch) replaces the draw from ``generator``; a batch draws one
+    sketch per matrix, in order."""
+    if sketch is not None:
+        O = torch.as_tensor(sketch).to(device=A.device, dtype=A.dtype)
+    elif A.ndim == 2:
         O = _gaussian_sketch(A.shape[1], l, generator, A)
     else:
-        O = torch.as_tensor(sketch).to(device=A.device, dtype=A.dtype)
+        O = torch.stack([_gaussian_sketch(A.shape[-1], l, generator, A)
+                         for _ in range(math.prod(A.shape[:-2]))])
+        O = O.reshape(*A.shape[:-2], A.shape[-1], l)
     Q = orthonormalize(A @ O)
     for _ in range(q):
         Q1 = orthonormalize(A.mH @ Q)
@@ -181,16 +198,17 @@ def randomized_truncated_svd(A: torch.Tensor, k: int,
     q = 7 power iterations if k < 0.1 * min(shape), else 4; a wide matrix
     is transposed first, so the sketch has min(shape) rows.
     """
-    q = 7 if k < 0.1 * min(A.shape) else 4
-    transpose = A.shape[0] < A.shape[1]
+    shape = A.shape[-2:]
+    q = 7 if k < 0.1 * min(shape) else 4
+    transpose = shape[0] < shape[1]
     if transpose:
-        A = A.T
-    Q = randomized_range_finder(A, min(k + OVERSAMPLE, min(A.shape)), q,
+        A = A.mT
+    Q = randomized_range_finder(A, min(k + OVERSAMPLE, min(shape)), q,
                                 generator, sketch=sketch)
     U, s, Vh = svd_compat(Q.mH @ A, full_matrices=False)
-    U, s, Vh = Q @ U[:, :k], s[:k], Vh[:k, :]
+    U, s, Vh = Q @ U[..., :k], s[..., :k], Vh[..., :k, :]
     if transpose:
-        return Vh.T, s, U.T
+        return Vh.mT, s, U.mT
     return U, s, Vh
 
 
@@ -200,13 +218,13 @@ def truncation_rank_mask(s: torch.Tensor, max_bond_dim: int, abs_err: float,
 
     Keep the smallest r such that the dropped tail sums to at most
     max(abs_err, sum(s) * rel_err), and r <= max_bond_dim. The rank stays on
-    the device.
+    the device (one per spectrum of a batch).
     """
-    allowed = torch.clamp(torch.sum(s) * rel_err, min=abs_err)
-    tail = s.flip(0).cumsum(0).flip(0)  # tail[i] = s[i] + s[i+1] + ...
-    keep = (tail > allowed) & (torch.arange(s.shape[0], device=s.device)
+    allowed = torch.clamp(torch.sum(s, -1, keepdim=True) * rel_err, min=abs_err)
+    tail = s.flip(-1).cumsum(-1).flip(-1)  # tail[i] = s[i] + s[i+1] + ...
+    keep = (tail > allowed) & (torch.arange(s.shape[-1], device=s.device)
                                < max_bond_dim)
-    return keep.sum(), keep.to(s.dtype)
+    return keep.sum(-1), keep.to(s.dtype)
 
 
 def matrix_svd_split(m: torch.Tensor, cap: int, *, max_bond_dim: int,
@@ -215,12 +233,12 @@ def matrix_svd_split(m: torch.Tensor, cap: int, *, max_bond_dim: int,
                      use_randomized: bool | None = None):
     """SVD-split m ~= m1 @ m2 with internal dimension `cap`.
 
-    m1: (m.shape[0], cap), m2: (cap, m.shape[1]); truncated directions are
-    zeroed. The randomized path is chosen when
+    m1: (..., m.shape[-2], cap), m2: (..., cap, m.shape[-1]); truncated
+    directions are zeroed. The randomized path is chosen when
     ``max_bond_dim * 10 < full_rank`` unless overridden. Returns
-    (m1, m2, rank), the rank a 0-d device tensor.
+    (m1, m2, rank), the rank a device tensor (one per matrix of a batch).
     """
-    full_rank = min(m.shape)
+    full_rank = min(m.shape[-2:])
     if use_randomized is None:
         use_randomized = max_bond_dim * 10 < full_rank
     if use_randomized:
@@ -232,16 +250,17 @@ def matrix_svd_split(m: torch.Tensor, cap: int, *, max_bond_dim: int,
 
     rank, mask = truncation_rank_mask(s, max_bond_dim, abs_err, rel_err)
     sqrt_s = (torch.sqrt(s) * mask).to(u.dtype)
-    m1 = u * sqrt_s[None, :]
-    m2 = sqrt_s[:, None] * vh
+    m1 = u * sqrt_s[..., None, :]
+    m2 = sqrt_s[..., :, None] * vh
 
-    k_have = m1.shape[1]
+    k_have = m1.shape[-1]
     if k_have < cap:
-        m1 = torch.cat([m1, m1.new_zeros(m1.shape[0], cap - k_have)], 1)
-        m2 = torch.cat([m2, m2.new_zeros(cap - k_have, m2.shape[1])], 0)
+        m1 = torch.cat([m1, m1.new_zeros(*m1.shape[:-1], cap - k_have)], -1)
+        m2 = torch.cat([m2, m2.new_zeros(*m2.shape[:-2], cap - k_have,
+                                         m2.shape[-1])], -2)
     elif k_have > cap:
-        m1 = m1[:, :cap]
-        m2 = m2[:cap, :]
+        m1 = m1[..., :cap]
+        m2 = m2[..., :cap, :]
     return m1, m2, rank
 
 
@@ -249,25 +268,31 @@ def tensor_svd(tensor: torch.Tensor, left_indices, right_indices, *,
                max_bond_dim: int | None = None, abs_err: float = 0.0,
                rel_err: float = 1e-12,
                generator: torch.Generator | None = None,
-               cap: int | None = None, svd_method: str = "auto"):
+               cap: int | None = None, svd_method: str = "auto",
+               batch_dims: int = 0):
     """Split a rank-n tensor across (left_indices | right_indices) by SVD.
 
     Returns (m1, m2, rank): m1 owns left_indices + [bond], m2 owns
     [bond] + right_indices, with the bond padded to the capacity
     ``min(bucket(mbd), mbd)`` for a given ``max_bond_dim`` (else
-    ``bucket(full_rank)``) unless `cap` is given.
+    ``bucket(full_rank)``) unless `cap` is given. The first
+    ``batch_dims`` axes are a batch of tensors, each split on its own (the
+    indices count the axes after them); ``rank`` then has the batch's
+    shape.
     """
     left_indices = list(left_indices)
     right_indices = list(right_indices)
-    if sorted(left_indices + right_indices) != list(range(tensor.ndim)):
+    if sorted(left_indices + right_indices) != list(range(tensor.ndim - batch_dims)):
         raise IndexError("Output indices does not match indices of initial tensor")
 
-    lshape = [tensor.shape[i] for i in left_indices]
-    rshape = [tensor.shape[i] for i in right_indices]
-    m = tensor.permute(left_indices + right_indices)
-    m = m.reshape(math.prod(lshape), math.prod(rshape))
+    batch = list(tensor.shape[:batch_dims])
+    lshape = [tensor.shape[batch_dims + i] for i in left_indices]
+    rshape = [tensor.shape[batch_dims + i] for i in right_indices]
+    m = tensor.permute(list(range(batch_dims))
+                       + [batch_dims + i for i in left_indices + right_indices])
+    m = m.reshape(*batch, math.prod(lshape), math.prod(rshape))
 
-    full_rank = min(m.shape)
+    full_rank = min(m.shape[-2:])
     mbd = full_rank if max_bond_dim is None else min(max_bond_dim, full_rank)
     if cap is None:
         cap = min(bucket(mbd), mbd) if max_bond_dim is not None else bucket(mbd)
@@ -281,4 +306,5 @@ def tensor_svd(tensor: torch.Tensor, left_indices, right_indices, *,
         m, cap, max_bond_dim=mbd, abs_err=abs_err, rel_err=rel_err,
         generator=generator, use_randomized=use_randomized,
     )
-    return m1.reshape(*lshape, cap), m2.reshape(cap, *rshape), rank
+    return (m1.reshape(*batch, *lshape, cap), m2.reshape(*batch, cap, *rshape),
+            rank)

@@ -22,6 +22,9 @@ A^H-sweep) with the matmul-only ``orthonormalize(method="ns")``, the
 the host (the only device sync), a float64 numpy eigh with the reference
 truncation rule, and the assembly of the factors with the Fourier
 post-gates. The kept rank is a host int.
+:func:`streamed_pair_svd_batched` runs a batch of trajectories' splits one
+after another (one Gram fetch each), where the JAX package's vmapped
+programs fetch one batch of Grams.
 
 Differences from the JAX package, all deliberate: the direct BS route by
 default and no ``QCT_BS_DECOMP``; one layout with Python loops (the JAX
@@ -39,7 +42,7 @@ import os
 import numpy as np
 import torch
 
-from ..config import full_fp32_matmul
+from ..config import full_fp32_matmul, to_device
 from ..utils.profiling import span
 from .interp import affine_warp, fourier
 from .linalg import OVERSAMPLE, orthonormalize
@@ -160,7 +163,7 @@ def _stream_sketch(d: int, b: int, l: int, generator: torch.Generator | None,
         raise ValueError("a streamed split requires a torch.Generator")
     o = torch.randn((d, b, l), generator=generator, dtype=torch.float64,
                     device=generator.device)
-    return o.to(device=like.device, dtype=like.dtype, non_blocking=True)
+    return to_device(o, like.device).to(like.dtype)
 
 
 def _gram(Xm: torch.Tensor) -> torch.Tensor:
@@ -306,3 +309,24 @@ def streamed_pair_svd(t1: torch.Tensor, t2: torch.Tensor, qs: torch.Tensor,
             return _streamed_shear_via_cz(t1, t2, qs, warp_params[1],
                                           warp_params[2], **kw)
     return _streamed_driver(t1, t2, qs, warp_params, **kw)
+
+
+def streamed_pair_svd_batched(t1: torch.Tensor, t2: torch.Tensor, qs: torch.Tensor,
+                              warp_params: tuple, *, max_bond_dim: int,
+                              abs_err: float, rel_err: float,
+                              generator: torch.Generator | None,
+                              power_iters: int = 4):
+    """Batched :func:`streamed_pair_svd`: t1 (B, a, d, k), t2 (B, k, d, b).
+
+    Returns (m1 (B, a, d, cap), m2 (B, cap, d, b), rank): the factors at
+    the common cap min(max_bond_dim, a d, d b), each trajectory's truncated
+    directions zero-masked, and the kept ranks as a host int array (B,).
+    The trajectories split one after another (one Gram fetch each),
+    drawing their sketches from ``generator`` in order.
+    """
+    kw = dict(max_bond_dim=max_bond_dim, abs_err=abs_err, rel_err=rel_err,
+              generator=generator, power_iters=power_iters)
+    out = [streamed_pair_svd(t1[z], t2[z], qs, warp_params, **kw)
+           for z in range(t1.shape[0])]
+    return (torch.stack([o[0] for o in out]), torch.stack([o[1] for o in out]),
+            np.asarray([o[2] for o in out], dtype=np.int64))

@@ -1,0 +1,52 @@
+"""Shared pipeline infrastructure (counterpart of
+``quantum_computations_tpu/pipelines/common.py``): dataclass configs with a
+CLI, and the whole-file JSON ``.dat`` output the reference's analysis
+reads. The JAX package's persistent compile cache has no counterpart.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import logging
+import os
+
+
+def write_data(path: str, data: list[dict]):
+    """Whole-file JSON rewrite. ``default=float`` writes numpy scalars."""
+    with open(path, "w") as fh:
+        fh.write(json.dumps(data, default=float))
+
+
+def prepare_output(path: str, overwrite: bool = False):
+    if path is None:
+        return
+    if os.path.exists(path) and not overwrite:
+        raise FileExistsError(f"File {path} already exists!")
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    open(path, "w").close()
+
+
+def config_cli(config_cls, argv=None):
+    """Build an argparse CLI from a dataclass config and parse argv; also
+    turns on INFO logging (the per-cell progress lines of a sweep)."""
+    logging.basicConfig(
+        level=logging.INFO,
+        format="%(asctime)s %(name)s: %(message)s", datefmt="%H:%M:%S")
+    parser = argparse.ArgumentParser(description=config_cls.__doc__)
+    for f in dataclasses.fields(config_cls):
+        arg = "--" + f.name.replace("_", "-")
+        default = f.default if f.default is not dataclasses.MISSING else None
+        if f.default_factory is not dataclasses.MISSING:  # type: ignore[misc]
+            default = f.default_factory()  # type: ignore[misc]
+        if f.type in ("bool", bool):
+            parser.add_argument(arg, action="store_true" if not default else "store_false")
+        elif f.type in ("int", int):
+            parser.add_argument(arg, type=int, default=default)
+        elif f.type in ("float", float):
+            parser.add_argument(arg, type=float, default=default)
+        else:
+            parser.add_argument(arg, type=str, default=default)
+    ns = parser.parse_args(argv)
+    return config_cls(**{f.name: getattr(ns, f.name) for f in dataclasses.fields(config_cls)})

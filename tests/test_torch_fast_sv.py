@@ -607,6 +607,10 @@ def test_port_imports_no_jax():
             "import quantum_computations_tpu_torch.dv.simulator\n"
             "import quantum_computations_tpu_torch.gkp\n"
             "import quantum_computations_tpu_torch.utils\n"
+            "import quantum_computations_tpu_torch.ops.fused_gadget\n"
+            "import quantum_computations_tpu_torch.gkp.batched\n"
+            "import quantum_computations_tpu_torch.gkp.compiled\n"
+            "import quantum_computations_tpu_torch.pipelines.rb_batched\n"
             "new = set(sys.modules) - before\n"
             "bad = sorted(m for m in new if m.split('.')[0] in "
             "('jax', 'jaxlib', 'quantum_computations_tpu'))\n"
