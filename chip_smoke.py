@@ -48,6 +48,21 @@ trajectory's fidelity to the DV state; 9c one trajectory in complex64
 and two controls against complex128 with the draws replayed; 9d, when a
 split streams, the largest streamed split by both BS routes.
 
+Then the first paper's Grover path and the other pipelines (phase 10):
+10a Grover [0, 4] at 12.5 dB through ``pipelines/grover_batched.main``
+at its production settings (d = 1000, chi = 100), one batch of two
+trajectories: time, host syncs, peak memory, a trace's busy share and
+per-op times, op counts, largest bonds, each trajectory's success and raw
+trace; 10b, when a split streams, its largest streamed split by both BS
+routes against the materialised split; 10c one Grover trajectory at d =
+300, chi = 25, complex64 and two controls against complex128, replayed;
+10d ``gkp/compiled.CompiledGKP`` through ``rb_compiled`` and
+``grover_compiled`` at their own sizes: time, peak, host syncs by source
+(cuSOLVER's alone) and complex64 against complex128; 10e ``grover.main``
+on its test circuit, ``rb.sample_depth``, ``clifford_fidelity.job``
+against the JAX pipeline's stored rows, and process tomography on the
+card.
+
 Prints one line per phase with its wall time, JSON lines of the paths'
 numbers, then the card's name and power limit, a JSON line of per-kernel
 numbers, and as its last line ``{"ok": true, "device": {...}}``. Any
@@ -61,6 +76,7 @@ numpy, and the port's own CPU path.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import logging
 import os
@@ -388,18 +404,19 @@ def cv_run(name: str, device="cuda", forced=(), check=False, profile_dir=None,
 def gram_svd_complex64(A):
     """Control: ``ops.linalg.svd_gram`` with its Gram formed and decomposed
     in A's dtype (complex64) instead of float64, its diagonal ramp scaled
-    to float32 rounding."""
-    m, n = A.shape
+    to float32 rounding; A may carry leading batch axes."""
+    m, n = A.shape[-2:]
     if m < n:
         U, s, Vh = gram_svd_complex64(A.mH)
         return Vh.mH.resolve_conj(), s, U.mH.resolve_conj()
     G = A.mH @ A
-    G.diagonal().add_(torch.arange(n, dtype=G.real.dtype, device=G.device)
-                      * (1e-7 * torch.trace(G).real / n**2))
+    trace = G.diagonal(dim1=-2, dim2=-1).sum(-1).real
+    G.diagonal(dim1=-2, dim2=-1).add_(
+        torch.arange(n, dtype=G.real.dtype, device=G.device) * (1e-7 * trace / n**2)[..., None])
     w, V = torch.linalg.eigh(G)
-    w, V = w.flip(0), V.flip(1)
+    w, V = w.flip(-1), V.flip(-1)
     s = torch.sqrt(torch.clamp(w, min=0.0))
-    U = (A @ V) / torch.where(s > 0, s, torch.ones_like(s))[None, :]
+    U = (A @ V) / torch.where(s > 0, s, torch.ones_like(s))[..., None, :]
     return U, s, V.mH.resolve_conj()
 
 
@@ -489,16 +506,10 @@ def trace_summary(trace_dir: str, prefix: str = "cv:") -> dict:
 
 
 def count_syncs(fn) -> int:
-    """Host syncs of ``fn()``, as torch's sync debug mode reports them."""
-    torch.cuda.synchronize()
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            fn()
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-    return sum("synchroniz" in str(w.message) for w in caught)
+    """Host syncs of ``fn()``, as torch's sync debug mode reports them
+    (:func:`count_syncs_by_source`, summed)."""
+    counts = count_syncs_by_source(fn)
+    return counts["library"] + counts["other"]
 
 
 def split_parts(name: str, k: int, forced, reference: bool) -> dict:
@@ -1278,21 +1289,19 @@ RB_TRACE_DIR = os.path.join("profile_traces", "rb")  # ignored by git
 
 def rb_workload():
     """(DV gates, transpiled circuit, engine) of bench.py's workload."""
-    from quantum_computations_tpu_torch.gkp.batched import BatchedGKP
     from quantum_computations_tpu_torch.pipelines.rb import random_circ
     dv_circ, gkp_circ = random_circ(2, RB_DEPTH, np.random.default_rng(RB_CIRCUIT_SEED))
-    runner = BatchedGKP(CV_QS, CV_EPS, {"rel_err": 1e-2, "max_bond_dim": 100},
-                        adaptive=True, granularity="op", device="cuda")
-    return dv_circ, gkp_circ, runner
+    return dv_circ, gkp_circ, rb_engine()
 
 
-def rb_run(runner, gkp_circ, batch=RB_BATCH, seed=RB_SEED):
+def rb_run(runner, gkp_circ, batch=RB_BATCH, seed=RB_SEED, coeffs=None):
     """One batch of trajectories and its readout: (tensors, frames, rho
-    (complex128 numpy, raw), syndromes per gadget)."""
+    (complex128 numpy, raw)); ``coeffs`` default to |0>|0>."""
     from quantum_computations_tpu_torch.dv import State
     from quantum_computations_tpu_torch.gkp.compiled import logical_coeffs
-    tensors, frames = runner.run_circuit(gkp_circ, logical_coeffs([State.ZERO] * 2),
-                                         batch, rng_seed=seed)
+    if coeffs is None:
+        coeffs = logical_coeffs([State.ZERO] * 2)
+    tensors, frames = runner.run_circuit(gkp_circ, coeffs, batch, rng_seed=seed)
     re, im = runner.readout(tensors, frames)
     rho = re.double().cpu().numpy() + 1j * im.double().cpu().numpy()
     return tensors, frames, rho
@@ -1317,6 +1326,23 @@ def largest_inputs():
 
     with patched(batched, "fused_single_gadget", keep("single")), \
             patched(batched, "fused_pair_measure2", keep("pair")):
+        yield kept
+
+
+@contextlib.contextmanager
+def largest_streamed_split():
+    """Inside the block the inputs of the largest streamed BS split (by
+    bond product) that the batched engine runs are kept: {"args": (t1,
+    t2, angle), "size": a*b}."""
+    from quantum_computations_tpu_torch.gkp import compiled
+    kept, real = {}, compiled.streamed_pair_svd_batched
+
+    def keep(t1, t2, q, warp, **kw):
+        if t1.shape[1] * t2.shape[-1] > kept.get("size", 0):
+            kept.update(size=t1.shape[1] * t2.shape[-1], args=(t1, t2, warp[1]))
+        return real(t1, t2, q, warp, **kw)
+
+    with patched(compiled, "streamed_pair_svd_batched", keep):
         yield kept
 
 
@@ -1394,11 +1420,11 @@ def env_c64():
         yield
 
 
-def rb_state_fidelity(a, b) -> float:
-    """|<a|b>|^2 / (<a|a><b|b>) of two one-trajectory batched chains, in
-    complex128."""
+def rb_state_fidelity(a, b, qs) -> float:
+    """|<a|b>|^2 / (<a|a><b|b>) of two one-trajectory batched chains on
+    the grid ``qs``, in complex128."""
     from quantum_computations_tpu_torch.cv import MPS
-    return cv_fidelity(MPS(CV_QS, [t[0] for t in a]), MPS(CV_QS, [t[0] for t in b]))
+    return cv_fidelity(MPS(qs, [t[0] for t in a]), MPS(qs, [t[0] for t in b]))
 
 
 def fused_at_width(kept) -> dict:
@@ -1454,49 +1480,71 @@ def fused_at_width(kept) -> dict:
     return out
 
 
-def trajectory_c64_vs_c128(gkp_circ) -> dict:
-    """9c: one trajectory of the circuit in complex128 (drawn), then in
-    complex64 and in complex64 under the tables_f32 control with its
+REPLAY_CONTROLS = {"env_c64": env_c64, "tables_f32": rb_control,
+                   "gram_c64": lambda: cv_control("gram_c64")}
+
+
+def c64_vs_c128_replayed(run, qs, limits, label: str,
+                         controls=("env_c64", "tables_f32"), must_catch="tables_f32") -> dict:
+    """One trajectory by ``run()`` -> (tensors, frames, rho) in complex128
+    (drawn), then in complex64 and in complex64 under each control with its
     indices and sketches replayed: 1 - fidelity of the final state, max
-    |rho diff| of the corrected logical density, syndromes equal."""
-    from quantum_computations_tpu_torch.gkp.batched import BatchedGKP
-
-    def engine():
-        return BatchedGKP(CV_QS, CV_EPS, {"rel_err": 1e-2, "max_bond_dim": 100},
-                          adaptive=True, granularity="op", device="cuda")
-
+    |rho diff| of the corrected logical density, the largest relative
+    difference of a drawn bin's probability, frames equal. The complex64
+    readings must lie inside ``limits`` and those of the control
+    ``must_catch`` outside them; with ``limits`` None the readings are only
+    reported."""
     with x64_dtype(), rb_tape() as tape:
-        ref_t, ref_f, ref_rho = rb_run(engine(), gkp_circ, batch=1, seed=RB_SEED + 1)
+        ref_t, ref_f, ref_rho = run()
     out = {"draws": len(tape["draw"]), "sketches": len(tape["rsvd"]) + len(tape["stream"])}
-    for label, ctx in (("c64", contextlib.nullcontext()), ("env_c64", env_c64()),
-                       ("tables_f32", rb_control())):
+    for name in ("c64",) + tuple(controls):
+        ctx = contextlib.nullcontext() if name == "c64" else REPLAY_CONTROLS[name]()
         with rb_tape(tape) as c_tape, ctx:
-            t, f, rho = rb_run(engine(), gkp_circ, batch=1, seed=RB_SEED + 1)
+            t, f, rho = run()
         if t[0].dtype != torch.complex64 or ref_t[0].dtype != torch.complex128:
-            raise AssertionError(f"9c ran {t[0].dtype} against {ref_t[0].dtype}")
-        out[label] = {"infidelity": 1 - rb_state_fidelity(ref_t, t),
-                      "rho_max_abs_diff": float(np.abs(rho - ref_rho).max()),
-                      "max_rel_prob_diff": max_rel_diff(
-                          [float(p) for p in torch.cat(c_tape["prob"])],
-                          [float(p) for p in torch.cat(tape["prob"])]),
-                      "frames_equal": bool((f == ref_f).all())}
-    log(f"9c one trajectory, complex64 vs complex128 (indices and sketches "
+            raise AssertionError(f"{label} ran {t[0].dtype} against {ref_t[0].dtype}")
+        out[name] = {"infidelity": 1 - rb_state_fidelity(ref_t, t, qs),
+                     "rho_max_abs_diff": float(np.abs(rho - ref_rho).max()),
+                     "max_rel_prob_diff": max_rel_diff(
+                         [float(p) for p in torch.cat(c_tape["prob"])],
+                         [float(p) for p in torch.cat(tape["prob"])]),
+                     "frames_equal": bool((np.asarray(f) == np.asarray(ref_f)).all())}
+    log(f"{label} one trajectory, complex64 vs complex128 (indices and sketches "
         f"replayed): {out}; limits (1 - fidelity, max |rho diff|, max rel "
-        f"prob diff): {RB_LIMITS}")
+        f"prob diff): {limits}")
+    if limits is None:
+        return out
     if not out["c64"]["frames_equal"]:
-        raise AssertionError("9c: complex64 frames differ from complex128")
+        raise AssertionError(f"{label}: complex64 frames differ from complex128")
 
     def inside(r):
         return all(r[k] < limit for k, limit in zip(
-            ("infidelity", "rho_max_abs_diff", "max_rel_prob_diff"), RB_LIMITS))
+            ("infidelity", "rho_max_abs_diff", "max_rel_prob_diff"), limits))
 
     if not inside(out["c64"]):
-        raise AssertionError(f"9c: complex64 {out['c64']} outside {RB_LIMITS}")
-    out["caught"] = {c: not inside(out[c]) for c in ("env_c64", "tables_f32")}
-    if not out["caught"]["tables_f32"]:
-        raise AssertionError(f"9c: the tables_f32 control {out['tables_f32']} "
-                             f"passes the limits {RB_LIMITS}")
+        raise AssertionError(f"{label}: complex64 {out['c64']} outside {limits}")
+    out["caught"] = {c: not inside(out[c]) for c in controls}
+    if not out["caught"][must_catch]:
+        raise AssertionError(f"{label}: the {must_catch} control {out[must_catch]} "
+                             f"passes the limits {limits}")
     return out
+
+
+def rb_engine(qs=None, epsilon=None, max_bond_dim=100):
+    """BatchedGKP in its production configuration on the card (default:
+    the CV grid and 10 dB)."""
+    from quantum_computations_tpu_torch.gkp.batched import BatchedGKP
+    return BatchedGKP(CV_QS if qs is None else qs, CV_EPS if epsilon is None else epsilon,
+                      {"rel_err": 1e-2, "max_bond_dim": max_bond_dim},
+                      adaptive=True, granularity="op", device="cuda")
+
+
+def trajectory_c64_vs_c128(gkp_circ) -> dict:
+    """9c: one trajectory of the RB circuit, complex64 and two controls
+    against complex128 (:func:`c64_vs_c128_replayed`)."""
+    return c64_vs_c128_replayed(
+        lambda: rb_run(rb_engine(), gkp_circ, batch=1, seed=RB_SEED + 1),
+        CV_QS, RB_LIMITS, "9c")
 
 
 def streamed_routes(kept_split) -> dict:
@@ -1522,23 +1570,14 @@ def streamed_routes(kept_split) -> dict:
 
 def rb_path() -> dict:
     """Phase 9: bench.py's workload through BatchedGKP on the card."""
-    from quantum_computations_tpu_torch.gkp import compiled
     from quantum_computations_tpu_torch.pipelines.rb_batched import _dv_state_np, _score_batch
     from quantum_computations_tpu_torch.utils import maybe_trace
     dv_circ, gkp_circ, runner = rb_workload()
     result = {"circuit": [f"{type(g).__name__}{tuple(g.indices)}" for g in dv_circ],
               "layers": gkp_circ.depth(), "batch": RB_BATCH, "grid": len(CV_QS),
               "max_bond_dim": 100, "rel_err": 1e-2, "epsilon": CV_EPS}
-    split_kept = {}
-    real_split = compiled.streamed_pair_svd_batched
-
-    def keep_split(t1, t2, q, warp, **kw):
-        if t1.shape[1] * t2.shape[-1] > split_kept.get("size", 0):
-            split_kept.update(size=t1.shape[1] * t2.shape[-1], args=(t1, t2, warp[1]))
-        return real_split(t1, t2, q, warp, **kw)
-
     with Phase("9b warm-up (keeps the largest fused inputs)"):
-        with largest_inputs() as kept, patched(compiled, "streamed_pair_svd_batched", keep_split):
+        with largest_inputs() as kept, largest_streamed_split() as split_kept:
             rb_run(runner, gkp_circ)
         torch.cuda.synchronize()
     with Phase("9a fused gadgets at production width"):
@@ -1598,6 +1637,489 @@ def rb_path() -> dict:
     if "args" in split_kept:
         with Phase("9d the largest streamed split by both BS routes"):
             result["streamed_routes"] = streamed_routes(split_kept["args"])
+    return result
+
+
+# -- the Grover path, the whole-circuit engine and the small pipelines ------
+# The first paper's headline workload: pipelines/grover_batched's defaults
+# (tagged [0, 4], 12.5 dB, d = 1000 on [-20, 20], chi = 100, rel_err 1e-2,
+# BatchedGKP's production settings, seed 42), cut to one batch of two
+# trajectories (the pipeline runs 20 in batches of 10).
+GROVER_TAGGED = [0, 4]
+GROVER_DB = 12.5
+GROVER_BATCH = 2
+GROVER_SUCCESS_MIN = 0.5   # ideal 1.0; a uniform guess over 8 outcomes 0.25
+GROVER_TPU_CELL = ("benchmarks/gkp_grover_tpu_summary.json, gkp_grover_04.dat, "
+                   "tagged [0, 4] at 12.5 dB: TPU engine 0.9571 (SE 0.0159, n = 60), "
+                   "reference 0.9537 (SE 0.0141, n = 40)")
+GROVER_C_POINTS, GROVER_C_CAP = 300, 25  # 10c: benchmarks/grover_fused_ab_cpu.json's size
+# complex64 vs complex128 limits of one replayed trajectory: 1 - fidelity,
+# max |rho diff|, max rel prob diff. 10c (Grover at d = 300, chi = 25): on
+# an H100 the sound readings were 1.6e-12, 6.0e-7, 3.1e-6, tables_f32's
+# 2.5e-11, 2.3e-6, 5.1e-6 and env_c64's 8.0e-13, 9.5e-4, 3.1e-2; the
+# fidelity separates tables_f32 (limit near the geometric mean), the other
+# two are ~20x the sound reading. 10d (grover_compiled's program with the
+# exact SVD, seeds 2-4): sound 5.7e-11 to 1.2e-10, 3.1e-6 to 6.1e-6,
+# 1.1e-5 to 1.6e-5; the complex64-Gram control 5.0e-9 to 1.9e-7, 2.2e-5 to
+# 2.8e-4, 1.1e-4 to 2.1e-4; the same rule (PERF.md §6)
+GROVER_LIMITS = (6e-12, 1.2e-5, 6e-5)
+COMPILED_LIMITS = {"grover_compiled": (8e-10, 1.2e-4, 3.2e-4)}
+CLIFF_TOL = 1e-9           # complex128 on the card vs the JAX package's x64 rows
+# 10d: CompiledGKP at its pipelines' own sizes (pipelines/rb_compiled.py,
+# pipelines/grover_compiled.py defaults, one circuit / one dB)
+COMPILED_RB = {"db": 5.83, "depth": 8, "trajectories": 16, "grid_points": 512,
+               "max_bond_dim": 16}
+COMPILED_GROVER = {"db": 10.0, "trajectories": 8, "grid_points": 512, "max_bond_dim": 8,
+                   "tagged": "2,7"}
+EAGER_POINTS = 1000        # 10e: the eager pipelines' grid (d = 1000 on [-20, 20])
+SPLIT_CHECK_MAX_SIDE = 24000  # 10b: the largest Gram side formed for the criteria
+GROVER_TRACE_DIR = os.path.join("profile_traces", "grover")  # ignored by git
+
+
+def db_to_eps(db: float) -> float:
+    return float(2 * np.arctanh(10 ** (-db / 10) / 2))
+
+
+def grover_circuit(tagged=GROVER_TAGGED):
+    """(transpiled circuit, (N, 2, 2) coefficients of |000>) of the CZ-only
+    Grover circuit."""
+    from quantum_computations_tpu_torch.gkp import MBGKPCircuit
+    from quantum_computations_tpu_torch.gkp.compiled import logical_coeffs
+    from quantum_computations_tpu_torch.pipelines.grover import grover
+    circuit, init = grover(tagged)
+    gkp_circ = MBGKPCircuit.transpile(circuit)
+    gkp_circ.fill()
+    return gkp_circ, logical_coeffs(init)
+
+
+def count_syncs_by_source(fn) -> dict:
+    """Host syncs of ``fn()`` (torch's sync debug mode), split into those
+    raised inside ``torch.linalg.eigh`` (cuSOLVER's info check: the
+    library's) and all others, with the port's source line of each other
+    one; also the eigh calls."""
+    import traceback
+    counts = {"library": 0, "other": 0, "eigh_calls": 0, "other_sites": []}
+    inside, running = [False], [False]
+    real_eigh = torch.linalg.eigh
+
+    def eigh(*args, **kw):
+        counts["eigh_calls"] += 1
+        inside[0] = True
+        try:
+            return real_eigh(*args, **kw)
+        finally:
+            inside[0] = False
+
+    def show(message, *args, **kw):
+        if "synchroniz" not in str(message) or not running[0]:
+            return
+        counts["library" if inside[0] else "other"] += 1
+        if not inside[0]:
+            counts["other_sites"].append(" < ".join(
+                f"{os.path.basename(f.filename)}:{f.lineno}"
+                for f in traceback.extract_stack()[-8:-1][::-1]))
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(), patched(torch.linalg, "eigh", eigh):
+        warnings.simplefilter("always")
+        warnings.showwarning = show
+        torch.cuda.set_sync_debug_mode("warn")
+        running[0] = True
+        try:
+            fn()
+        finally:
+            running[0] = False
+            torch.cuda.set_sync_debug_mode("default")
+    return counts
+
+
+def grover_batched_run() -> tuple[dict, dict, dict]:
+    """10a: pipelines/grover_batched.main at its defaults, one batch of
+    GROVER_BATCH trajectories; then the same batch under sync counting and
+    under the profiler. Returns (result, the engine, the largest streamed
+    split's inputs)."""
+    from quantum_computations_tpu_torch.pipelines import grover_batched as gb
+    from quantum_computations_tpu_torch.pipelines.grover import success_probability
+    from quantum_computations_tpu_torch.utils import maybe_trace
+    config = gb.GroverBatchedConfig(
+        trajectories=GROVER_BATCH, batch=GROVER_BATCH, overwrite=True,
+        data_file=os.path.join(GROVER_TRACE_DIR, "gkp_grover_batched.dat"))
+    if [int(x) for x in config.tagged.split(",")] != GROVER_TAGGED or \
+            float(config.dbs) != GROVER_DB:
+        raise AssertionError(f"GroverBatchedConfig moved: {config}")
+    runners, real_cls = [], gb.BatchedGKP
+
+    def engine(*args, **kw):
+        runners.append(real_cls(*args, **kw))
+        return runners[-1]
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    with patched(gb, "BatchedGKP", engine), largest_streamed_split() as split_kept:
+        data = gb.main(config)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    with open(config.data_file + ".meta.json") as fh:
+        meta = json.load(fh)
+    runner = runners[0]
+    counts, largest = dict(runner.counts), dict(runner.largest)
+    rhos = [np.asarray(r["rho_real"]) + 1j * np.asarray(r["rho_imag"]) for r in data]
+    success = [success_probability(rho, GROVER_TAGGED) for rho in rhos]
+    traces = [float(np.trace(rho).real) for rho in rhos]
+    gkp_circ, coeffs = grover_circuit()
+
+    def batch():
+        return rb_run(runner, gkp_circ, batch=GROVER_BATCH, seed=config.rng_seed,
+                      coeffs=coeffs)
+
+    syncs = count_syncs(batch)
+    with maybe_trace(GROVER_TRACE_DIR):
+        batch()
+    trace = trace_summary(GROVER_TRACE_DIR, prefix="op:")
+    result = {
+        "config": dataclasses.asdict(config), "layers": gkp_circ.depth(),
+        "seconds_per_batch": seconds, "seconds_per_trajectory": seconds / GROVER_BATCH,
+        "meta": meta, "host_syncs_per_batch": syncs,
+        "host_syncs_per_trajectory": syncs / GROVER_BATCH,
+        "max_memory_allocated_gib": peak,
+        "device_busy_share": trace["device_busy_share"],
+        "traced_window_ms": trace["window_ms"], "per_op": trace["per_class"],
+        "counts": counts, "largest": largest, "success": success, "traces": traces,
+        "mean_success": float(np.mean(success)), "tpu_reference_cell": GROVER_TPU_CELL}
+    log(f"10a Grover {GROVER_TAGGED} at {GROVER_DB} dB, d = {config.grid_points}, chi = "
+        f"{config.max_bond_dim}, {gkp_circ.depth()} layers: {seconds:.3f} s per batch "
+        f"of {GROVER_BATCH}, {seconds / GROVER_BATCH:.3f} s per trajectory; host syncs "
+        f"{syncs} ({syncs / GROVER_BATCH:.1f} per trajectory); peak {peak:.3f} GiB; "
+        f"device busy {trace['device_busy_share']:.4f} of {trace['window_ms']:.1f} ms "
+        f"traced; counts {counts}; largest (a, b) {largest}")
+    log(f"10a per op span (host ms / device ms): " + "; ".join(
+        f"{k} x{v['calls']} {v['host_ms']:.1f} / {v['device_ms']:.1f}"
+        for k, v in sorted(trace["per_class"].items(), key=lambda kv: -kv[1]["host_ms"])))
+    log(f"10a success per trajectory {success}, raw traces {traces}; for scale, "
+        f"{GROVER_TPU_CELL}")
+    if not all(np.isfinite(traces)) or not min(traces) > 0 or meta[0]["dropped"]:
+        raise AssertionError(f"10a: traces {traces}, meta {meta}")
+    if not result["mean_success"] > GROVER_SUCCESS_MIN:
+        raise AssertionError(f"10a: mean success {success} <= {GROVER_SUCCESS_MIN}")
+    if counts.get("fused_single", 0) < 1 or not any(k.startswith("fused_pair") for k in counts):
+        raise AssertionError(f"10a ran no fused gadget: {counts}")
+    return result, runner, split_kept
+
+
+def split_criteria(t1, t2, angle) -> dict:
+    """10b: one trajectory's streamed split by each BS route against the
+    materialised split (the JAX test's criteria, as 8b): reconstruction
+    error / dropped singular mass and the kept s^2, from the float64 Gram's
+    eigenvalues on the smaller side."""
+    from quantum_computations_tpu_torch.ops import interp, linalg, streamed
+    a, d, b = t1.shape[0], t1.shape[1], t2.shape[-1]
+    qs = torch.as_tensor(CV_QS, dtype=torch.float64, device="cuda")
+    warp = ("rot", angle)
+    A = interp.affine_warp(qs, torch.tensordot(t1, t2, dims=1), warp).reshape(a * d, d * b)
+    G = (A.mH @ A if a >= b else A @ A.mH).to(torch.complex128)
+    s64 = torch.sqrt(torch.clamp(torch.linalg.eigvalsh(G), min=0)).flip(0).cpu().numpy()
+    del G
+    cap = min(100, a * d, d * b)
+    q = streamed.effective_power_iters(7 if cap + 10 < 0.1 * min(a * d, d * b) else 4)
+    out = {"pair": [a, b], "elements": a * d * d * b,
+           "materialised_rank": int(linalg.truncation_rank_mask(
+               torch.from_numpy(s64.copy()), 100, 0.0, 1e-2)[0])}
+    for decomp in ("rot", "cz"):
+        with bs_decomp(decomp):
+            m1, m2, rank = streamed.streamed_pair_svd(
+                t1, t2, qs, warp, max_bond_dim=100, abs_err=0.0, rel_err=1e-2,
+                generator=torch.Generator().manual_seed(3), power_iters=q)
+        M1, M2 = m1.reshape(a * d, -1), m2.reshape(-1, d * b)
+        err = float(torch.linalg.vector_norm((M1 @ M2 - A).to(torch.complex128)))
+        dropped = float(s64[rank:].sum())
+        # a kept column of m1 = U sqrt(s) has squared norm s
+        kept = np.sort(torch.linalg.vector_norm(M1, dim=0).double().cpu().numpy())[::-1][:rank] ** 2
+        out[decomp] = {"rank": rank, "reconstruction_err": err, "dropped_mass": dropped,
+                       "err_over_dropped": err / dropped if dropped > 0 else None,
+                       "kept_s2_max_rel_diff": float(np.max(np.abs(kept - s64[:rank])
+                                                            / s64[:rank]))}
+        del m1, m2, M1, M2
+    del A
+    return out
+
+
+def grover_split_routes(kept) -> dict:
+    """10b: the Grover run's largest streamed split by both BS routes: the
+    batch's time and kept ranks (9d's ``streamed_routes``), then the first
+    trajectory's split against the materialised one."""
+    t1, t2, angle = kept
+    out = streamed_routes((t1, t2, angle))
+    side = min(t1.shape[1], t2.shape[-1]) * t1.shape[2]
+    if side > SPLIT_CHECK_MAX_SIDE:
+        log(f"10b criteria skipped: the Gram side {side} > {SPLIT_CHECK_MAX_SIDE}")
+        out["criteria"] = None
+        return out
+    out["criteria"] = split_criteria(t1[0], t2[0], angle)
+    log(f"10b criteria (error / dropped, kept s^2) on the first trajectory: "
+        f"{out['criteria']}")
+    for decomp in ("rot", "cz"):
+        c = out["criteria"][decomp]
+        out["criteria"][decomp]["meets_error"] = bool(
+            c["reconstruction_err"] <= 1.5 * c["dropped_mass"] + 1e-6)
+        out["criteria"][decomp]["meets_kept_s2"] = bool(c["kept_s2_max_rel_diff"] <= 1e-2)
+    return out
+
+
+def grover_engine_c64_vs_c128() -> dict:
+    """10c: one Grover trajectory at d = 300, chi = 25 (12.5 dB) through
+    BatchedGKP, complex64 and two controls against complex128, replayed."""
+    qs = np.linspace(-20, 20, GROVER_C_POINTS)
+    gkp_circ, coeffs = grover_circuit()
+    return c64_vs_c128_replayed(
+        lambda: rb_run(rb_engine(qs, db_to_eps(GROVER_DB), GROVER_C_CAP), gkp_circ,
+                       batch=1, seed=7, coeffs=coeffs),
+        qs, GROVER_LIMITS, "10c")
+
+
+def compiled_init(prog, coeffs, batch: int):
+    from quantum_computations_tpu_torch.config import complex_dtype
+    from quantum_computations_tpu_torch.gkp.compiled import product_tensors
+    return product_tensors(prog._gkp_basis(), np.asarray(coeffs, np.float32), prog.qs,
+                           batch, complex_dtype(prog.device))
+
+
+def compiled_syncs(prog, coeffs, batch: int) -> dict:
+    """Host syncs by source of one CompiledGKP trajectory program (no
+    readout) over ``batch`` trajectories."""
+    init = compiled_init(prog, coeffs, batch)
+    return count_syncs_by_source(lambda: prog.trajectory(init, 1))
+
+
+def compiled_run(prog, coeffs, batch: int, seed: int):
+    """One CompiledGKP batch: (tensors, frames, rho complex128 numpy)."""
+    from quantum_computations_tpu_torch.gkp.compiled import corrected_density
+    tensors, frames = prog.trajectory(compiled_init(prog, coeffs, batch), seed)
+    re, im = corrected_density(tensors, frames, prog.qs)
+    return tensors, frames.cpu().numpy(), re.double().cpu().numpy() + 1j * im.double().cpu().numpy()
+
+
+def compiled_c64_vs_c128(prog, coeffs, name: str) -> dict:
+    """10d: one trajectory of a CompiledGKP program, complex64 and controls
+    against complex128 with the draws and sketches replayed.
+
+    At these static caps many splits truncate inside a flat or degenerate
+    spectrum (s_8/s_1 ~ 0.8 on Grover's at grid 512, cap 8; exact pairs
+    of equal s), where the kept directions follow the working precision's
+    rounding. The pipeline's own program (the randomized SVD, whose range
+    finder does not converge on such spectra) is therefore read, not held;
+    rb_compiled's circuit truncates inside a near-degenerate cluster with
+    the exact SVD too (1 - F 2e-4 to 9e-4 on an H100). grover_compiled's
+    with the exact SVD is well posed: it is held to COMPILED_LIMITS, which
+    the complex64-Gram SVD control must break (tables_f32 does not move it
+    beyond complex64's own rounding)."""
+    from quantum_computations_tpu_torch.gkp.compiled import CompiledGKP
+    out = {"c64_vs_c128_randomized": c64_vs_c128_replayed(
+        lambda: compiled_run(prog, coeffs, 1, 2), prog.qs, None,
+        f"10d {name} (randomized SVD, no limit)", controls=("tables_f32",))}
+    if name in COMPILED_LIMITS:
+        exact = CompiledGKP(prog.circuit, prog.qs, prog.epsilon,
+                            dataclasses.replace(prog.opts, svd_method="full"), device="cuda")
+        out["c64_vs_c128_exact_svd"] = c64_vs_c128_replayed(
+            lambda: compiled_run(exact, coeffs, 1, 2), prog.qs, COMPILED_LIMITS[name],
+            f"10d {name} (exact SVD)", controls=("tables_f32", "gram_c64"),
+            must_catch="gram_c64")
+    return out
+
+
+def compiled_path() -> dict:
+    """10d: CompiledGKP at its pipelines' sizes on the card:
+    rb_compiled.sample_depth_compiled (one depth-8 circuit x 16
+    trajectories, 5.83 dB, grid 512, chi 16) and grover_compiled.main (one
+    dB, 10.0, 8 trajectories, grid 512, chi 8, tagged 2,7). Each: seconds
+    per trajectory, peak memory, the trajectory program's host syncs by
+    source (which must be cuSOLVER's eigh alone), and one trajectory in
+    complex64 against complex128, replayed (:func:`compiled_c64_vs_c128`)."""
+    from quantum_computations_tpu_torch.config import SVDOptions
+    from quantum_computations_tpu_torch.dv import State
+    from quantum_computations_tpu_torch.gkp.compiled import CompiledGKP, logical_coeffs
+    from quantum_computations_tpu_torch.pipelines import grover_compiled as gc
+    from quantum_computations_tpu_torch.pipelines import rb_compiled as rbc
+    from quantum_computations_tpu_torch.pipelines.rb import random_circ
+    out = {}
+    c = COMPILED_RB
+    qs = np.linspace(-20, 20, c["grid_points"])
+    n = c["trajectories"]
+
+    # rb_compiled: the first circuit sample_depth_compiled draws with seed 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    rows = rbc.sample_depth_compiled(c["db"], c["depth"], 1, n, rng_seed=0,
+                                     grid_points=c["grid_points"],
+                                     max_bond_dim=c["max_bond_dim"], device="cuda")
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    _, gkp_circ = random_circ(2, c["depth"], np.random.default_rng(0))
+    prog = CompiledGKP(gkp_circ, qs, db_to_eps(c["db"]),
+                       SVDOptions(max_bond_dim=c["max_bond_dim"], rel_err=1e-2), device="cuda")
+    coeffs = logical_coeffs([State.ZERO] * 2)
+    syncs = compiled_syncs(prog, coeffs, n)
+    fids = [r["fidelity"] for r in rows]
+    purs = [r["purity"] for r in rows]
+    out["rb_compiled"] = {
+        "layers": gkp_circ.depth(), "trajectories": len(rows), "seconds": seconds,
+        "seconds_per_trajectory": seconds / len(rows), "max_memory_allocated_gib": peak,
+        "syncs_per_batch": syncs, "syncs_per_trajectory": {
+            k: syncs[k] / n for k in ("library", "other", "eigh_calls")},
+        "fidelities": fids, "purities": purs, "mean_fidelity": float(np.mean(fids)),
+        **compiled_c64_vs_c128(prog, coeffs, "rb_compiled")}
+    log(f"10d rb_compiled {out['rb_compiled']['layers']} layers, {n} trajectories: "
+        f"{seconds:.3f} s ({seconds / n:.4f} s per trajectory), peak {peak:.3f} GiB, "
+        f"trajectory syncs by source {syncs}; fidelities {fids}; purities {purs}")
+    bad = [v for v in fids + purs if not (np.isfinite(v) and 0 < v <= 1 + 1e-3)]
+    if bad or syncs["other"]:
+        raise AssertionError(f"10d rb_compiled: out of range {bad}, syncs {syncs}")
+
+    c = COMPILED_GROVER
+    n = c["trajectories"]
+    config = gc.GroverCompiledConfig(
+        dbs=str(c["db"]), traj_per_db=n, grid_points=c["grid_points"],
+        max_bond_dim=c["max_bond_dim"], tagged=c["tagged"], overwrite=True,
+        data_file=os.path.join(GROVER_TRACE_DIR, "gkp_grover_compiled.dat"))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    data = gc.main(config)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    tagged = [int(x) for x in config.tagged.split(",")]
+    gkp_circ, coeffs = grover_circuit(tagged)
+    prog = CompiledGKP(gkp_circ, np.linspace(-config.grid_span, config.grid_span,
+                                             config.grid_points),
+                       db_to_eps(c["db"]), SVDOptions(max_bond_dim=config.max_bond_dim,
+                                                      rel_err=config.rel_err), device="cuda")
+    syncs = compiled_syncs(prog, coeffs, n)
+    summary = gc.summarize(data, tagged)
+    traces = [float(np.trace(np.asarray(r["rho_real"]))) for r in data]
+    out["grover_compiled"] = {
+        "layers": gkp_circ.depth(), "trajectories": len(data), "seconds": seconds,
+        "seconds_per_trajectory": seconds / len(data), "max_memory_allocated_gib": peak,
+        "syncs_per_batch": syncs, "syncs_per_trajectory": {
+            k: syncs[k] / n for k in ("library", "other", "eigh_calls")},
+        "mean_success": summary, "traces": traces,
+        **compiled_c64_vs_c128(prog, coeffs, "grover_compiled")}
+    log(f"10d grover_compiled {tagged}, {gkp_circ.depth()} layers, {n} trajectories: "
+        f"{seconds:.3f} s ({seconds / n:.4f} s per trajectory), peak {peak:.3f} GiB, "
+        f"trajectory syncs by source {syncs}; mean success {summary}; traces {traces}")
+    if not all(np.isfinite(traces)) or not min(traces) > 0 or syncs["other"]:
+        raise AssertionError(f"10d grover_compiled: traces {traces}, syncs {syncs}")
+    return out
+
+
+def eager_pipelines() -> dict:
+    """10e: the eager pipelines and the small ones at d = 1000 on the
+    card: grover.main on test_circuit() (one repeat, 10 dB), rb.sample_depth
+    (one sample, depth 2, 10 dB), clifford_fidelity.job on the first 8
+    classes at the first two dBs against benchmarks/gkp_cliff_generated.dat,
+    and process tomography on three channels (the numpy path and the
+    device core)."""
+    from quantum_computations_tpu_torch.dv import Simulator as DVSim, qop
+    from quantum_computations_tpu_torch.pipelines import clifford_fidelity as cf
+    from quantum_computations_tpu_torch.pipelines import grover as gr, rb, tomography as tomo
+    out = {}
+    circuit, init = gr.test_circuit()
+    config = gr.GroverConfig(db_min=10.0, db_max=10.0, db_points=1, db_skip=0, repeats=1,
+                             grid_points=EAGER_POINTS, overwrite=True,
+                             data_file=os.path.join(GROVER_TRACE_DIR, "gkp_grover.dat"))
+    t = time.perf_counter()
+    with patched(gr, "grover", lambda tagged: (circuit, init)):
+        rows = gr.main(config, progress=False)
+    seconds = time.perf_counter() - t
+    rho = np.asarray(rows[0]["rho_real"]) + 1j * np.asarray(rows[0]["rho_imag"])
+    want = DVSim(circuit, device="cuda").run(init).cpu().to(torch.complex128)
+    trace = float(np.trace(rho).real)
+    fid = float(qop.fidelity(want, torch.from_numpy(rho / trace)))
+    out["grover_main_test_circuit"] = {"seconds": seconds, "trace": trace,
+                                       "fidelity_to_dv": fid}
+    t = time.perf_counter()
+    rows = rb.sample_depth(10.0, 2, 1, 5, grid_points=EAGER_POINTS, device="cuda")
+    out["rb_sample_depth"] = {"seconds": time.perf_counter() - t, "rows": rows}
+    log(f"10e grover.main on test_circuit(): {out['grover_main_test_circuit']}; "
+        f"rb.sample_depth: {out['rb_sample_depth']}")
+    if not (np.isfinite(trace) and trace > 0 and fid > 0.5):
+        raise AssertionError(f"10e grover.main: {out['grover_main_test_circuit']}")
+    r = rows[0]
+    if not all(np.isfinite(r[k]) and 0 < r[k] <= 1 + 1e-3 for k in ("fidelity", "purity")):
+        raise AssertionError(f"10e rb.sample_depth: {rows}")
+
+    with open(os.path.join("benchmarks", "gkp_cliff_generated.dat")) as fh:
+        stored = {(round(e["db"], 6), e["clifford_index"]): e["fidelities"] for e in json.load(fh)}
+    qs = np.linspace(-20, 20, 1000)  # CliffordConfig's grid, the file's
+    reps, paulis = cf.compute_cliffords(), cf.compute_paulis()
+    dbs = np.linspace(5.0, 15.0, 13)[:2]
+    diffs = {"c128": 0.0, "c64": 0.0}
+    t = time.perf_counter()
+    for db in dbs:
+        for idx in range(8):
+            want = np.asarray(stored[(round(float(db), 6), idx)])
+            for label, dtype in (("c128", torch.complex128), ("c64", torch.complex64)):
+                got = cf.job(qs, db, reps[idx], idx, paulis, device="cuda", dtype=dtype)
+                diffs[label] = max(diffs[label],
+                                   float(np.abs(np.asarray(got["fidelities"]) - want).max()))
+    out["clifford_job"] = {"classes": 8, "dbs": dbs.tolist(), "max_abs_diff": diffs,
+                           "seconds": time.perf_counter() - t, "tolerance_c128": CLIFF_TOL}
+    log(f"10e clifford_fidelity.job, 8 classes x 2 dBs at d = 1000 against "
+        f"benchmarks/gkp_cliff_generated.dat: {out['clifford_job']}")
+    if not diffs["c128"] <= CLIFF_TOL:
+        raise AssertionError(f"10e clifford job off the stored rows: {diffs}")
+
+    p = 0.25
+    channels = {"identity": ([np.identity(2)], 1),
+                "depolarizing": ([np.sqrt(1 - p) * qop.IDTY]
+                                 + [np.sqrt(p / 3) * P for P in qop.PAULIS], 1),
+                "cz": ([np.asarray(qop.CZ)], 2)}
+    out["tomography"] = {}
+    for name, (Ks, N) in channels.items():
+        chan = tomo.quantum_channel(Ks, ket_input=True, return_input=True)
+        D, kraus = tomo.process_tomography(chan, N, normalised=True, full_output=True)
+        inputs, outputs = tomo.eval_process(chan, N, True)
+        basis = tomo.pauli_basis(N)
+        M = tomo.fit_superoperator(np.stack(inputs), np.stack(outputs), device="cuda")
+        Dd, Kd = tomo.kraus_from_chi(tomo.chi_from_superoperator(M, basis, device="cuda"),
+                                     basis, device="cuda")
+        probe = np.outer(np.arange(1, 2**N + 1), np.arange(1, 2**N + 1)) / 2**N
+        apply = lambda w, k: sum(x * a @ probe @ a.conj().T for x, a in zip(w, k))  # noqa: E731
+        err = float(np.abs(apply(Dd.cpu().numpy(), Kd.cpu().numpy())
+                           - apply(D, kraus)).max())
+        kept = int((D > 1e-12).sum())
+        out["tomography"][name] = {"kraus_rank": kept, "device_vs_numpy": err}
+        if not err < 1e-10 or kept != (4 if name == "depolarizing" else 1):
+            raise AssertionError(f"10e tomography {name}: {out['tomography'][name]}")
+    log(f"10e tomography (device core on the card vs the numpy path): "
+        f"{out['tomography']}")
+    return out
+
+
+def grover_path() -> dict:
+    """Phase 10: the Grover path, the whole-circuit engine and the small
+    pipelines on the card."""
+    result = {}
+    with Phase(f"10a Grover through pipelines/grover_batched, batch {GROVER_BATCH}"):
+        result["grover_batched"], runner, split_kept = grover_batched_run()
+    streamed = result["grover_batched"]["counts"].get("bs_streamed", 0)
+    if "args" in split_kept:
+        with Phase("10b the Grover run's largest streamed split by both BS routes"):
+            result["streamed_routes"] = grover_split_routes(split_kept["args"])
+    else:
+        result["streamed_routes"] = None
+        log(f"10b nothing streamed ({streamed} streamed splits); largest pairs "
+            f"{runner.largest}")
+    del split_kept, runner
+    with Phase("10c Grover, one trajectory, complex64 vs complex128"):
+        result["c64_vs_c128"] = grover_engine_c64_vs_c128()
+    with Phase("10d CompiledGKP at its pipelines' sizes"):
+        result["compiled"] = compiled_path()
+    with Phase("10e the eager and the small pipelines at d = 1000"):
+        result["eager"] = eager_pipelines()
     return result
 
 
@@ -2019,6 +2541,8 @@ def main() -> int:
     print(json.dumps({"gkp_path": gkp_result, "card": card}), flush=True)
     rb_result = rb_path()
     print(json.dumps({"rb_path": rb_result, "card": card}), flush=True)
+    grover_result = grover_path()
+    print(json.dumps({"grover_path": grover_result, "card": card}, default=float), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

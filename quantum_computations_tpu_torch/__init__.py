@@ -25,7 +25,11 @@ Ported so far:
   :class:`.gkp.batched.BatchedGKP` (op granularity, adaptive trims, the
   SVD-free fused gadgets of :mod:`.ops.fused_gadget`, host rank
   tracking) with the :mod:`.gkp.compiled` helpers and the RB pipelines
-  :mod:`.pipelines.rb` and :mod:`.pipelines.rb_batched`.
+  :mod:`.pipelines.rb` and :mod:`.pipelines.rb_batched`;
+- the whole-circuit engine :class:`.gkp.compiled.CompiledGKP` (static
+  caps, device control flow) and the research pipelines of
+  :mod:`.pipelines` (Grover eager, batched and compiled, RB eager and
+  compiled, analysis, tomography, Clifford fidelity).
 """
 
 from . import config

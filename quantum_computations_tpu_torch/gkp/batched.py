@@ -44,10 +44,10 @@ from ..utils import as_generator
 from ..utils.profiling import span
 from .compiled import (ARCTAN2, _bs_split, _homodyne, _insert_bell,
                        _single_gadget, _syndrome_from, _two_mode_gadget,
-                       _two_mode_syndromes, bell_vectors, gkp_basis)
+                       _two_mode_syndromes, bell_vectors, corrected_density,
+                       gkp_basis, product_tensors)
 from .gates import MB2Type
 from .transpiler import MBGKPCircuit
-from .utils import logical_density_batch
 
 __all__ = ["BatchedGKP"]
 
@@ -372,17 +372,9 @@ class BatchedGKP:
         """Batched initial product state from (N, 2, 2) real logical
         coefficients: (batch, 1, d, 1) tensors in the device's complex
         dtype."""
-        dtype = complex_dtype(self.device)
-        zero, one = self._gkp_basis()
-        c = np.asarray(coeffs, np.float64)
-        dq = float(self.qs[1] - self.qs[0])
-        tensors = []
         with span("init"):
-            for i in range(c.shape[0]):
-                psi = zero * complex(c[i, 0, 0], c[i, 0, 1]) + one * complex(c[i, 1, 0], c[i, 1, 1])
-                psi = psi / torch.sqrt(torch.sum(psi.real ** 2 + psi.imag ** 2) * dq)
-                tensors.append(psi.to(dtype).reshape(1, 1, -1, 1).repeat(batch, 1, 1, 1))
-        return tensors
+            return product_tensors(self._gkp_basis(), coeffs, self.qs, batch,
+                                   complex_dtype(self.device))
 
     def readout(self, tensors, frames: np.ndarray):
         """Syndrome-corrected logical rho for a batch: (rho_re, rho_im),
@@ -392,20 +384,9 @@ class BatchedGKP:
         weight a truncation discarded shows up as a trace deficit and
         counts as infidelity.
         """
-        frames = np.asarray(frames)
-        X = np.array([[0.0, 1.0], [1.0, 0.0]])
-        Z = np.array([[1.0, 0.0], [0.0, -1.0]])
-        corr = np.ones((frames.shape[0], 1, 1))
-        for i in range(frames.shape[1]):
-            m = np.where(frames[:, i, 1, None, None] == 1, Z, np.eye(2))
-            m = np.where(frames[:, i, 0, None, None] == 1, X @ m, m)
-            corr = np.einsum("zab,zcd->zacbd", corr, m).reshape(
-                frames.shape[0], corr.shape[1] * 2, corr.shape[2] * 2)
         with span("readout"):
-            rho = logical_density_batch(tensors, self.qs)
-            corr = to_device(corr, rho.device).to(rho.dtype)
-            rho = corr @ rho @ corr.mH
-        return rho.real, rho.imag
+            frames = to_device(np.asarray(frames, np.int32), tensors[0].device)
+            return corrected_density(tensors, frames, self.qs)
 
     # ------------------------------------------------------------------
     def run_circuit(self, circuit: MBGKPCircuit, coeffs: np.ndarray, batch: int,

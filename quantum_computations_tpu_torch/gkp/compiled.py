@@ -1,14 +1,28 @@
-"""Gadget building blocks of the batched GKP engine (counterpart of the
-helpers of ``quantum_computations_tpu/gkp/compiled.py``).
+"""The whole-circuit GKP trajectory program and the gadget building blocks
+of the batched engines (counterpart of
+``quantum_computations_tpu/gkp/compiled.py``).
 
-The JAX package writes these on one MPS and vmaps them over trajectories;
-here they act on a batched chain, a list of (B, l, d, r) tensors, one
-trajectory per row of the leading axis. Bell insertion is the exact,
-SVD-free splice; a beamsplitter contracts, rotates and splits every
+The JAX package writes the gadgets on one MPS and vmaps them over
+trajectories; here they act on a batched chain, a list of (B, l, d, r)
+tensors, one trajectory per row of the leading axis. Bell insertion is the
+exact, SVD-free splice; a beamsplitter contracts, rotates and splits every
 trajectory at one common cap with its truncated directions zero-masked
 (streamed above ``cv.gates._STREAM_THRESHOLD``); a homodyne draws one
-outcome per trajectory without a sync. Syndromes are host numpy.
-``CompiledGKP``, the whole-circuit program, is not ported.
+outcome per trajectory without a sync. The gadgets decode their syndromes
+on the host (the path of :class:`.batched.BatchedGKP`) or, with
+``host=False``, on the device.
+
+:class:`CompiledGKP` is the counterpart of the JAX package's jitted and
+vmapped program: one eager program over the leading trajectory axis in
+which no host value steers the layer loop. Bonds stay at their static caps
+(no trim, as under JAX's jit); the Pauli frame, the previous layer's
+syndromes, the classically controlled P angle and the T gadget's frame
+sign and Bell coefficient are device tensors; the readout returns the
+syndrome-corrected, raw (not trace-normalised) logical density as real and
+imaginary parts. The host waits only for the linear-algebra library:
+cuSOLVER's ``eigh`` in the randomized SVD's range finder and in the Gram
+SVD of a materialised split (a split above the stream threshold would add
+the streamed path's host eigh).
 """
 
 from __future__ import annotations
@@ -16,15 +30,20 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..config import SVDOptions, full_fp32_matmul, to_device
+from ..config import SVDOptions, complex_dtype, full_fp32_matmul, resolve_device, to_device
 from ..cv import gates as cvg
 from ..cv.states import State as CVState
+from ..dv import gates as dv_gates
+from ..dv.simulator import ClassicalControl
 from ..ops import interp
 from ..ops.fused_gadget import _at, _draw, _grid, _left_env, _right_env
 from ..ops.linalg import tensor_svd
 from ..ops.streamed import effective_power_iters, streamed_pair_svd_batched
+from ..utils import as_generator
 from .bell import splice_product_segment
 from .gates import MB2Type
+from .transpiler import MBGKPCircuit
+from .utils import logical_density_batch
 
 SQPI = np.sqrt(np.pi)
 ARCTAN2 = float(np.arctan(2))
@@ -39,12 +58,51 @@ def gkp_basis(q: torch.Tensor, epsilon: float) -> tuple[torch.Tensor, torch.Tens
 
 def bell_vectors(basis, coeff1, dtype) -> torch.Tensor:
     """(B, d, 2) Bell column vectors 2^(-1/4) (|0>, c1 |1>) for one second
-    logical coefficient c1 per trajectory (host complex array), in
-    ``dtype``."""
+    logical coefficient c1 per trajectory (a host complex array, or a
+    device tensor), in ``dtype``."""
     zero, one = basis
-    c1 = to_device(np.asarray(coeff1, np.complex128), one.device)
+    if isinstance(coeff1, torch.Tensor):
+        c1 = coeff1.to(one.device, torch.complex128)
+    else:
+        c1 = to_device(np.asarray(coeff1, np.complex128), one.device)
     bell = torch.stack([zero.expand(c1.shape[0], -1), c1[:, None] * one], -1)
     return (2 ** (-1 / 4) * bell).to(dtype)
+
+
+def product_tensors(basis, coeffs: np.ndarray, qs, batch: int, dtype) -> list[torch.Tensor]:
+    """Batched GKP product state from (N, 2, 2) real logical coefficients:
+    per mode a|0> + b|1>, grid-normalised, as (batch, 1, d, 1) tensors in
+    ``dtype`` on the basis's device."""
+    zero, one = basis
+    c = np.asarray(coeffs, np.float64)
+    dq = float(qs[1] - qs[0])
+    tensors = []
+    for i in range(c.shape[0]):
+        psi = zero * complex(c[i, 0, 0], c[i, 0, 1]) + one * complex(c[i, 1, 0], c[i, 1, 1])
+        psi = psi / torch.sqrt(torch.sum(psi.real ** 2 + psi.imag ** 2) * dq)
+        tensors.append(psi.to(dtype).reshape(1, 1, -1, 1).repeat(batch, 1, 1, 1))
+    return tensors
+
+
+def corrected_density(tensors, frames: torch.Tensor, qs):
+    """Syndrome-corrected logical density of a batch of chains: C rho C^H
+    with C = kron_i X^x_i Z^z_i from the (B, N, 2) frames (a tensor on the
+    chain's device). Returns (rho_re, rho_im), (B, 2^N, 2^N), not
+    trace-normalised."""
+    rho = logical_density_batch(tensors, qs)
+    B, N = frames.shape[:2]
+    eye = torch.eye(2, dtype=torch.float64, device=rho.device)
+    X, Z = eye.flip(0), eye.clone()
+    Z[1, 1] = -1.0
+    corr = eye.new_ones((B, 1, 1))
+    for i in range(N):
+        m = torch.where(frames[:, i, 1, None, None] == 1, Z, eye)
+        m = torch.where(frames[:, i, 0, None, None] == 1, X @ m, m)
+        corr = torch.einsum("zab,zcd->zacbd", corr, m).reshape(
+            B, corr.shape[1] * 2, corr.shape[2] * 2)
+    corr = corr.to(rho.dtype)
+    rho = corr @ rho @ corr.mH
+    return rho.real, rho.imag
 
 
 def _insert_bell(tensors, idx: int, bell: torch.Tensor):
@@ -110,7 +168,8 @@ def _homodyne(tensors, idx: int, angle, generator, qs, *, static_zero: bool = Fa
     tensors = list(tensors)
     q = _grid(qs, tensors[idx].device)
     if not static_zero:
-        angle = angle if np.ndim(angle) == 0 else np.asarray(angle, np.float64)
+        if not isinstance(angle, torch.Tensor) and np.ndim(angle) != 0:
+            angle = np.asarray(angle, np.float64)
         tensors[idx] = interp.rotation(q, tensors[idx], -angle, axis=2)
     t = tensors[idx]
     dq = float((qs[-1] - qs[0]) / (len(qs) - 1))
@@ -143,6 +202,38 @@ def _syndrome_from(ta, tb, ma, mb) -> np.ndarray:
     return np.round(vec / SQPI).astype(np.int32) % 2
 
 
+def _phase(t):
+    """exp(i t) of an angle: a complex128 tensor for a tensor, else a
+    Python complex."""
+    return torch.exp(1j * t.double()) if isinstance(t, torch.Tensor) else complex(np.exp(1j * t))
+
+
+def _bits(mu: torch.Tensor) -> torch.Tensor:
+    """(..., 2) int32 parities of round((re mu, im mu) / sqrt(pi))."""
+    vec = torch.stack([mu.real, mu.imag], -1)
+    return torch.round(vec / SQPI).to(torch.int32) % 2
+
+
+def _syndrome_from_device(ta, tb, ma: torch.Tensor, mb: torch.Tensor) -> torch.Tensor:
+    """Device twin of :func:`_syndrome_from`: (B, 2) int32 on the outcomes'
+    device, in float64; the angles are numbers or (B,) tensors."""
+    ma, mb = ma.double(), mb.double()
+    diff = ta - tb
+    sin = torch.sin(diff.double()) if isinstance(diff, torch.Tensor) else float(np.sin(diff))
+    mu = 1j * (ma * _phase(tb) + mb * _phase(ta)) / sin
+    return _bits(mu * 2**0.5)
+
+
+def _two_mode_syndromes_device(mb2type: MB2Type, ms) -> torch.Tensor:
+    """Device twin of :func:`_two_mode_syndromes`: (B, 2, 2) int32 on the
+    outcomes' device."""
+    ta, tc, tb, td = mb2type.angles()
+    ma, mb, mc, md = (m.double() for m in ms)
+    mu_ab = 1j * (ma * _phase(tb) + mb * _phase(ta)) / float(np.sin(ta - tb))
+    mu_cd = 1j * (mc * _phase(td) + md * _phase(tc)) / float(np.sin(tc - td))
+    return torch.stack([_bits(mu_cd + mu_ab), _bits(mu_cd - mu_ab)], 1)
+
+
 def _two_mode_syndromes(mb2type: MB2Type, ms) -> np.ndarray:
     """(B, 2, 2) syndromes of a macronode gadget from host outcomes
     ms = (m_a, m_b, m_c, m_d)."""
@@ -158,26 +249,31 @@ def _two_mode_syndromes(mb2type: MB2Type, ms) -> np.ndarray:
 
 
 def _single_gadget(tensors, idx: int, meas_angles, syn_angles, bell: torch.Tensor,
-                   opts: SVDOptions, generator, qs, *, a1_zero: bool = True):
+                   opts: SVDOptions, generator, qs, *, a1_zero: bool = True,
+                   host: bool = True):
     """Walshe single-mode gadget on a batched chain: Bell insertion, BS
     split, two homodynes. ``meas_angles`` are the measured angles (each a
     number or one per trajectory), ``syn_angles`` those of the syndrome
     formula (they differ for a Pauli-frame-flipped T). Returns (tensors,
-    (B, 2) host syndromes)."""
+    (B, 2) syndromes): host numpy, or with ``host=False`` an int32 tensor
+    on the chain's device (no fetch)."""
     tensors = _insert_bell(tensors, idx + 1, bell)
     tensors, _ = _bs_split(tensors, idx, idx + 1, opts, generator, qs)
     tensors, m_a = _homodyne(tensors, idx, meas_angles[0], generator, qs,
                              static_zero=a1_zero)
     tensors, m_b = _homodyne(tensors, idx, meas_angles[1], generator, qs)
+    if not host:
+        return tensors, _syndrome_from_device(syn_angles[0], syn_angles[1], m_a, m_b)
     ms = torch.stack([m_a, m_b], -1).cpu().numpy()
     return tensors, _syndrome_from(syn_angles[0], syn_angles[1], ms[:, 0], ms[:, 1])
 
 
 def _two_mode_gadget(tensors, idx: int, mb2type: MB2Type, bell: torch.Tensor,
-                     opts: SVDOptions, generator, qs):
+                     opts: SVDOptions, generator, qs, *, host: bool = True):
     """Macronode two-mode gadget (static angles) on a batched chain: two
     Bell insertions (``bell``, coefficient 1), four BS splits, four
-    homodynes. Returns (tensors, (B, 2, 2) host syndromes)."""
+    homodynes. Returns (tensors, (B, 2, 2) syndromes): host numpy, or with
+    ``host=False`` an int32 tensor on the chain's device."""
     ta, tc, tb, td = mb2type.angles()
     tensors = _insert_bell(tensors, idx, bell)
     tensors = _insert_bell(tensors, idx + 4, bell)
@@ -189,8 +285,177 @@ def _two_mode_gadget(tensors, idx: int, mb2type: MB2Type, bell: torch.Tensor,
     tensors, _ = _bs_split(tensors, idx + 1, idx + 2, opts, generator, qs)
     tensors, m_b = _homodyne(tensors, idx + 1, tb, generator, qs, static_zero=(tb == 0.0))
     tensors, m_d = _homodyne(tensors, idx + 1, td, generator, qs, static_zero=(td == 0.0))
+    if not host:
+        return tensors, _two_mode_syndromes_device(mb2type, (m_a, m_b, m_c, m_d))
     ms = torch.stack([m_a, m_b, m_c, m_d]).cpu().numpy()
     return tensors, _two_mode_syndromes(mb2type, ms)
+
+
+class CompiledGKP:
+    """Whole-circuit trajectory program for a transpiled
+    :class:`.transpiler.MBGKPCircuit`, over a batch of trajectories.
+
+    >>> prog = CompiledGKP(circuit, qs, epsilon, svd_options)
+    >>> tensors, frames = prog.batched(init_mps, 16, rng_seed=0)
+    >>> frames, rho_re, rho_im = prog.batched_readout(logical_coeffs(states), 16)
+
+    The counterpart of the JAX package's ``jit(vmap(trajectory))``: the
+    chain carries a leading trajectory axis and lives on ``device``
+    (default ``cuda``); every bond keeps its static cap with truncated
+    directions zero-masked; outcomes and sketches are drawn from one host
+    ``torch.Generator`` per call. Classical control selects parameters,
+    not structure: the controlled P/Pdg-versus-I gadget is one gadget
+    whose second homodyne angle is a device tensor, and the frame's T/Tdg
+    flip is a device sign in the Bell coefficient.
+    """
+
+    def __init__(self, circuit: MBGKPCircuit, qs, ancilla_epsilon,
+                 svd_options: SVDOptions | dict | None = None, *, device=None):
+        self.circuit = circuit
+        self.qs = np.asarray(qs)
+        self.epsilon = ancilla_epsilon
+        if isinstance(svd_options, dict):
+            svd_options = SVDOptions(**svd_options)
+        self.opts = svd_options or SVDOptions()
+        self.N = circuit._N
+        self.device = resolve_device(device)
+        self._basis: tuple[torch.Tensor, torch.Tensor] | None = None
+
+    def _gkp_basis(self) -> tuple[torch.Tensor, torch.Tensor]:
+        if self._basis is None:
+            self._basis = gkp_basis(_grid(self.qs, self.device), float(self.epsilon))
+        return self._basis
+
+    # -- frame arithmetic on the device ------------------------------------
+    @staticmethod
+    def _commute_frame(gate, frame: torch.Tensor) -> torch.Tensor:
+        """Pauli-frame update for a static gate type; ``frame`` is a (..., N,
+        2) int32 tensor (x, z bits per qubit). Returns a new tensor."""
+        t = type(gate)
+        frame = frame.clone()
+        if t is dv_gates.H:
+            i = gate.indices[0]
+            frame[..., i, :] = frame[..., i, :].flip(-1)
+        elif t in (dv_gates.P, dv_gates.Pdg):
+            i = gate.indices[0]
+            frame[..., i, 1] ^= frame[..., i, 0]
+        elif t is dv_gates.CZ:
+            i, j = gate.indices
+            zi = frame[..., i, 1] ^ frame[..., j, 0]
+            zj = frame[..., j, 1] ^ frame[..., i, 0]
+            frame[..., i, 1], frame[..., j, 1] = zi, zj
+        elif t is dv_gates.SWAP:
+            i, j = gate.indices
+            fi = frame[..., i, :].clone()
+            frame[..., i, :] = frame[..., j, :]
+            frame[..., j, :] = fi
+        return frame
+
+    # -- the program -------------------------------------------------------
+    def trajectory(self, init_tensors: list[torch.Tensor], rng_seed=None):
+        """Run every trajectory of a batched initial chain, (B, l, d, r)
+        tensors on the program's device, through the whole circuit.
+        Returns (tensors, frames (B, N, 2) int32 on the device)."""
+        tensors = [t.to(self.device) for t in init_tensors]
+        generator = as_generator(rng_seed)
+        B, N, dev = tensors[0].shape[0], self.N, self.device
+        opts, qs = self.opts, self.qs
+        dtype = tensors[0].dtype
+        basis = self._gkp_basis()
+        bell_one = bell_vectors(basis, torch.ones(B, dtype=torch.complex128, device=dev), dtype)
+        layers = self.circuit._layers
+        paulis = to_device(np.asarray([layer.paulis for layer in layers], np.int32), dev)
+        half_pi = torch.full((B,), np.pi / 2, dtype=torch.float64, device=dev)
+
+        def single(idx, meas, syn, bell, a1_zero=True):
+            nonlocal tensors
+            tensors, synd = _single_gadget(tensors, idx, meas, syn, bell, opts,
+                                           generator, qs, a1_zero=a1_zero, host=False)
+            cur_synd[:, idx] = synd
+
+        frame = torch.zeros((B, N, 2), dtype=torch.int32, device=dev)
+        prev_synd = torch.zeros_like(frame)  # the previous layer's gadget syndromes
+        for k, layer in enumerate(layers):
+            cur_synd = torch.zeros_like(frame)
+            for gate in layer.gates:
+                if isinstance(gate, ClassicalControl):
+                    # controlled P/Pdg vs I: a device angle selection
+                    idx = gate.gate.indices[0]
+                    cond = prev_synd[:, idx, 0]
+                    p_angle = -ARCTAN2 if isinstance(gate.gate, dv_gates.Pdg) else ARCTAN2
+                    angle2 = torch.where(cond == 1, half_pi.new_full((B,), p_angle), half_pi)
+                    # frame: P/Pdg set z ^= x only when triggered
+                    frame[:, idx, 1] ^= cond & frame[:, idx, 0]
+                    single(idx, (0.0, angle2), (0.0, angle2), bell_one)
+                    continue
+
+                t = type(gate)
+                if t in (dv_gates.T, dv_gates.Tdg):
+                    idx = gate.indices[0]
+                    # the Pauli frame flips T <-> Tdg: a device sign
+                    base = half_pi.new_full((B,), -1.0 if t is dv_gates.Tdg else 1.0)
+                    sgn = torch.where(frame[:, idx, 0] == 1, -base, base)
+                    bell = bell_vectors(basis, torch.exp(1j * np.pi / 8 * sgn), dtype)
+                    # measured at the plain I-angles; the syndrome formula
+                    # takes the dagger-signed ones (reference parity)
+                    single(idx, (0.0, np.pi / 2), (0.0, sgn * np.pi / 2), bell)
+                    continue
+
+                frame = self._commute_frame(gate, frame)
+                if t is dv_gates.I:
+                    single(gate.indices[0], (0.0, np.pi / 2), (0.0, np.pi / 2), bell_one)
+                elif t is dv_gates.H:
+                    angles = (np.pi / 4, -np.pi / 4)
+                    single(gate.indices[0], angles, angles, bell_one, a1_zero=False)
+                elif t in (dv_gates.P, dv_gates.Pdg):
+                    angle2 = -ARCTAN2 if t is dv_gates.Pdg else ARCTAN2
+                    single(gate.indices[0], (0.0, angle2), (0.0, angle2), bell_one)
+                elif t in (dv_gates.CZ, dv_gates.SWAP):
+                    idx = min(gate.indices)
+                    kind = MB2Type.CZ if t is dv_gates.CZ else MB2Type.SWAP
+                    tensors, synd = _two_mode_gadget(tensors, idx, kind, bell_one, opts,
+                                                     generator, qs, host=False)
+                    cur_synd[:, idx:idx + 2] = synd
+                else:
+                    raise NotImplementedError(f"Gate {gate} not supported in compiled mode.")
+
+            # end of layer: fold the gadget syndromes and scheduled Paulis
+            frame = frame ^ cur_synd ^ paulis[k]
+            prev_synd = cur_synd
+
+        return tensors, frame
+
+    def batched(self, init_mps, n: int, rng_seed=None):
+        """Run ``n`` trajectories from one initial MPS (its tensors
+        broadcast over the batch); returns (tensors (n, l, d, r), frames
+        (n, N, 2))."""
+        init = [t.to(self.device)[None].expand(n, *t.shape).contiguous()
+                for t in init_mps.tensors]
+        return self.trajectory(init, rng_seed)
+
+    # -- entry point from logical coefficients to the corrected rho ---------
+    def trajectory_with_readout(self, init_coeffs, rng_seed=None, *, n: int | None = None):
+        """Trajectories from logical initial coefficients to the corrected
+        logical density. ``init_coeffs`` is (N, 2, 2): per mode
+        [[a_re, a_im], [b_re, b_im]] of the GKP state a|0> + b|1>. Returns
+        (frame (N, 2), rho_re, rho_im (2^N, 2^N)) of one trajectory, or
+        with ``n`` the batch (n, ...): real and int tensors on the device,
+        the rho raw (not trace-normalised, the reference's convention)."""
+        batch = 1 if n is None else n
+        dtype = complex_dtype(self.device)
+        tensors = product_tensors(self._gkp_basis(), init_coeffs, self.qs, batch, dtype)
+        out, frames = self.trajectory(tensors, rng_seed)
+        rho_re, rho_im = corrected_density(out, frames, self.qs)
+        if n is None:
+            return frames[0], rho_re[0], rho_im[0]
+        return frames, rho_re, rho_im
+
+    def batched_readout(self, init_coeffs, n: int, rng_seed=None):
+        """``n`` trajectories -> (frames (n, N, 2), rho_re, rho_im (n, 2^N,
+        2^N)); the coefficients are taken in float32, as in the JAX
+        package."""
+        coeffs = np.asarray(init_coeffs, dtype=np.float32)
+        return self.trajectory_with_readout(coeffs, rng_seed, n=n)
 
 
 def logical_coeffs(dv_states) -> np.ndarray:

@@ -611,6 +611,15 @@ def test_port_imports_no_jax():
             "import quantum_computations_tpu_torch.gkp.batched\n"
             "import quantum_computations_tpu_torch.gkp.compiled\n"
             "import quantum_computations_tpu_torch.pipelines.rb_batched\n"
+            "import quantum_computations_tpu_torch.pipelines.circuits\n"
+            "import quantum_computations_tpu_torch.pipelines.grover\n"
+            "import quantum_computations_tpu_torch.pipelines.rb\n"
+            "import quantum_computations_tpu_torch.pipelines.grover_batched\n"
+            "import quantum_computations_tpu_torch.pipelines.grover_compiled\n"
+            "import quantum_computations_tpu_torch.pipelines.rb_compiled\n"
+            "import quantum_computations_tpu_torch.pipelines.analysis\n"
+            "import quantum_computations_tpu_torch.pipelines.tomography\n"
+            "import quantum_computations_tpu_torch.pipelines.clifford_fidelity\n"
             "new = set(sys.modules) - before\n"
             "bad = sorted(m for m in new if m.split('.')[0] in "
             "('jax', 'jaxlib', 'quantum_computations_tpu'))\n"
