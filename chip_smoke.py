@@ -63,6 +63,17 @@ on its test circuit, ``rb.sample_depth``, ``clifford_fidelity.job``
 against the JAX pipeline's stored rows, and process tomography on the
 card.
 
+Then engine threads and the second paper (phase 11): 11a 10a's Grover
+cell through ``grover_batched.main`` and bench.py's RB settings through
+``rb_batched.sample_depth_batched(runners=...)``, each with 1, 2 and 4
+engines (one Python thread and one CUDA stream per engine): s per
+trajectory, host syncs, peak memory and the busy share over all streams,
+and every threaded row against the serial row of the same seed; 11b the
+``gkp_ec_validation`` experiments at their default grids in complex64 and
+complex128 (complex64 within ``EC_C64_LIMITS`` of complex128, complex128
+held to the JAX tests' thresholds) and the five ``cv_circuits`` lists
+through ``cv.Simulator`` at d = 1000, cap 100, with their times.
+
 Prints one line per phase with its wall time, JSON lines of the paths'
 numbers, then the card's name and power limit, a JSON line of per-kernel
 numbers, and as its last line ``{"ok": true, "device": {...}}``. Any
@@ -2123,6 +2134,360 @@ def grover_path() -> dict:
     return result
 
 
+# -- phase 11: engine threads on CUDA streams, and the second paper ---------
+# 11a: the Grover cell of 10a and bench.py's RB settings, each at 1, 2 and 4
+# engine threads (one CUDA stream per engine, pipelines/common.run_engines),
+# one batch per engine. Each count runs once: s per trajectory, host
+# syncs, peak memory and host seconds per engine span summed over the
+# threads; at THREAD_TRACED counts the same run is also traced for the
+# device-busy share (the union of device intervals over every stream), so
+# its time includes the tracer's cost. The trace costs ~30 us of host
+# time per device event after the run, which is why the 2-engine run is
+# not traced. Rows must not depend on the thread count: a threaded Grover
+# row equals the serial row of its (rng_seed, rng_lane), and the threaded
+# RB rows and the serial rows of the same circuits (the shared generator
+# draws them in the same order) pair up both ways, to THREAD_ROW_TOL.
+THREAD_COUNTS = (1, 2, 4)
+THREAD_TRACED = (1, 4)
+THREAD_ROW_TOL = 1e-6
+THREADS_DATA_DIR = os.path.join("profile_traces", "threads")  # ignored by git
+
+
+def count_sync_total(fn) -> int:
+    """Host syncs of ``fn()`` in every thread, as torch's sync debug mode
+    reports them; only a count, so it costs the run little (the per-source
+    attribution of :func:`count_syncs_by_source` is not thread-safe)."""
+    n, running = [0], [False]
+
+    def show(message, *args, **kw):
+        if running[0] and "synchroniz" in str(message):
+            n[0] += 1
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = show
+        torch.cuda.set_sync_debug_mode("warn")
+        running[0] = True
+        try:
+            fn()
+        finally:
+            running[0] = False
+            torch.cuda.set_sync_debug_mode("default")
+    return n[0]
+
+
+def measure_threads(fn, traced: bool) -> dict:
+    """``fn()`` (which returns its rows, one per trajectory) run once,
+    timed, with its host syncs counted and the engines' host spans summed
+    over threads (``utils.profiling.WallClock``); if ``traced``, under a
+    CUDA-only ``torch.profiler`` trace (every stream; the profiler
+    records no CPU span of threads it was not started in). The busy
+    window runs from a one-element fill launched on the idle card just
+    before ``fn`` to another launched after it has drained; the busy time
+    is the union of all device intervals inside it, read from the
+    profiler's events without a trace file."""
+    from quantum_computations_tpu_torch.utils.profiling import WallClock
+    marker = torch.zeros(1, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    WallClock.reset()
+    WallClock.enable()
+    out = {}
+    prof = (torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA])
+            if traced else contextlib.nullcontext())
+    try:
+        with prof:
+            marker.fill_(1.0)
+            t = time.perf_counter()
+            syncs = count_sync_total(lambda: out.update(result=fn()))
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t
+            marker.fill_(2.0)
+            torch.cuda.synchronize()
+    finally:
+        WallClock.enable(False)
+    spans = WallClock.table()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    trajectories = len(out["result"])
+    result = {"result": out["result"], "seconds": seconds, "trajectories": trajectories,
+              "seconds_per_trajectory": seconds / trajectories, "traced": traced,
+              "host_syncs": syncs, "host_syncs_per_trajectory": syncs / trajectories,
+              "max_memory_allocated_gib": peak,
+              "host_s_per_span_summed_over_threads": {
+                  k: v["seconds"] for k, v in spans.items() if k.startswith("op:")}}
+    if not traced:
+        return result
+    cuda = torch.autograd.DeviceType.CUDA
+    device = []
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == cuda:
+            s0 = e.start_ns()
+            device.append((s0, s0 + e.duration_ns()))
+    device.sort()
+    if len(device) < 3:
+        raise AssertionError(f"the trace holds {len(device)} device events")
+    t0, t1 = device[0][0], max(f for _, f in device)
+    busy, end = 0, t0
+    for s0, f in device:
+        s0 = max(s0, end)
+        if f > s0:
+            busy += f - s0
+            end = f
+    return {**result, "device_busy_share": busy / (t1 - t0), "traced_window_ms": (t1 - t0) / 1e6,
+            "device_busy_ms": busy / 1e6, "device_events": len(device)}
+
+
+def grover_rows(threads: int, batches: int, rng_seed: int = 42, tag: str = "") -> list:
+    """Rows of grover_batched.main at 10a's cell with ``threads`` engines
+    and a target of ``batches`` batches of GROVER_BATCH. With a target of
+    one batch, every engine reserves its batch before the first one
+    finishes, so each runs one (a thread that finishes while the target
+    is unmet takes another, as in the JAX package); batch k's seed is
+    rng_seed + k GROVER_BATCH at any thread count."""
+    from quantum_computations_tpu_torch.pipelines import grover_batched as gb
+    config = gb.GroverBatchedConfig(
+        trajectories=batches * GROVER_BATCH, batch=GROVER_BATCH, threads=threads,
+        rng_seed=rng_seed, overwrite=True,
+        data_file=os.path.join(THREADS_DATA_DIR, f"grover_{threads}{tag}.dat"))
+    os.makedirs(THREADS_DATA_DIR, exist_ok=True)
+    data = gb.main(config)
+    with open(config.data_file + ".meta.json") as fh:
+        meta = json.load(fh)
+    if meta[0]["engine"]["threads"] != threads or meta[0]["dropped"]:
+        raise AssertionError(f"11a Grover meta: {meta}")
+    return data
+
+
+def rb_rows(threads: int, batches: int) -> list:
+    """bench.py's RB settings through rb_batched.sample_depth_batched with
+    ``threads`` engines and a target of ``batches`` batches of RB_BATCH
+    (as in :func:`grover_rows`): the circuits come from one generator
+    seeded with RB_CIRCUIT_SEED, so the k-th circuit drawn is the same at
+    any thread count."""
+    from quantum_computations_tpu_torch.pipelines.rb_batched import sample_depth_batched
+    runners = [rb_engine() for _ in range(threads)]
+    stats = {}
+    rows = sample_depth_batched(runners[0], 10.0, RB_DEPTH, batches * RB_BATCH, RB_BATCH,
+                                np.random.default_rng(RB_CIRCUIT_SEED), stats,
+                                runners=runners)
+    if stats["dropped"]:
+        raise AssertionError(f"11a RB dropped trajectories: {stats}")
+    return rows
+
+
+def rows_apart(rows, others, keys=("fidelity", "purity", "trace")) -> float:
+    """The largest distance from a row of ``rows`` to its nearest row of
+    ``others`` (the largest difference over ``keys``)."""
+    return max(min(max(abs(r[k] - o[k]) for k in keys) for o in others) for r in rows)
+
+
+def threads_path() -> dict:
+    """Phase 11a."""
+    from quantum_computations_tpu_torch.pipelines.grover import success_probability
+    out = {"grover": {}, "rb": {}}
+    for threads in THREAD_COUNTS:
+        traced = threads in THREAD_TRACED
+        with Phase(f"11a Grover with {threads} engine thread(s)"):
+            m = measure_threads(lambda: grover_rows(threads, 1), traced)
+            rows = m.pop("result")
+            success = [success_probability(np.asarray(r["rho_real"]) + 1j * np.asarray(
+                r["rho_imag"]), GROVER_TAGGED) for r in rows]
+            traces = [float(np.trace(np.asarray(r["rho_real"]))) for r in rows]
+            m.update(rows=rows, success=success, traces=traces,
+                     mean_success=float(np.mean(success)))
+            out["grover"][threads] = m
+        with Phase(f"11a RB with {threads} engine thread(s)"):
+            m = measure_threads(lambda: rb_rows(threads, 1), traced)
+            rows = m.pop("result")
+            m.update(rows=rows, traces=[r["trace"] for r in rows],
+                     mean_fidelity=float(np.mean([r["fidelity"] for r in rows])))
+            out["rb"][threads] = m
+    with Phase("11a no race: threaded rows against serial rows"):
+        # serial runs of the batches that the threaded runs drew
+        serial = {(r["rng_seed"], r["rng_lane"]): r for r in out["grover"][1]["rows"]}
+        for threads in THREAD_COUNTS[1:]:
+            for seed in sorted({r["rng_seed"] for r in out["grover"][threads]["rows"]}):
+                if (seed, 0) not in serial:
+                    for r in grover_rows(1, 1, rng_seed=seed, tag=f"_ref{seed}"):
+                        serial[(r["rng_seed"], r["rng_lane"])] = r
+        grover_err = 0.0
+        for threads in THREAD_COUNTS[1:]:
+            for r in out["grover"][threads]["rows"]:
+                s = serial[(r["rng_seed"], r["rng_lane"])]
+                grover_err = max(grover_err, *(
+                    float(np.abs(np.asarray(r[k]) - np.asarray(s[k])).max())
+                    for k in ("rho_real", "rho_imag")))
+        rb_serial = rb_rows(1, max(len(out["rb"][t]["rows"]) for t in THREAD_COUNTS) // RB_BATCH)
+        rb_err = 0.0
+        for threads in THREAD_COUNTS[1:]:
+            rows = out["rb"][threads]["rows"]
+            same = rb_serial[:len(rows)]  # the serial rows of the same circuits
+            rb_err = max(rb_err, rows_apart(rows, same), rows_apart(same, rows))
+        out["no_race"] = {"grover_max_abs_rho_diff": grover_err,
+                          "rb_max_row_diff": rb_err, "tolerance": THREAD_ROW_TOL,
+                          "serial_grover_batches": len(serial) // GROVER_BATCH,
+                          "serial_rb_batches": len(rb_serial) // RB_BATCH}
+        log(f"11a no race: Grover max |d rho| {grover_err:.3e} over "
+            f"{len(serial) // GROVER_BATCH} serial batches, RB max row diff "
+            f"{rb_err:.3e} both ways over {len(rb_serial) // RB_BATCH} serial batches "
+            f"(tolerance {THREAD_ROW_TOL})")
+    for name in ("grover", "rb"):
+        for threads, m in out[name].items():
+            score = m.get("mean_success", m.get("mean_fidelity"))
+            busy = (f"device busy {m['device_busy_share']:.4f} of {m['traced_window_ms']:.1f} "
+                    f"ms traced ({m['device_events']} device events)" if m["traced"]
+                    else "not traced")
+            log(f"11a {name} x{threads}: {m['seconds_per_trajectory']:.4f} s per trajectory "
+                f"({m['trajectories']} in {m['seconds']:.3f} s); host syncs per "
+                f"trajectory {m['host_syncs_per_trajectory']:.2f}; peak "
+                f"{m['max_memory_allocated_gib']:.3f} GiB; {busy}; mean score {score:.4f}")
+            log(f"11a {name} x{threads} host s per op span, summed over threads: "
+                + "; ".join(f"{k} {v:.3f}" for k, v in sorted(
+                    m["host_s_per_span_summed_over_threads"].items(), key=lambda kv: -kv[1])))
+            traces = np.asarray(m["traces"])
+            if not (np.all(np.isfinite(traces)) and np.all(traces > 0)):
+                raise AssertionError(f"11a {name} x{threads}: traces {traces}")
+            floor = GROVER_SUCCESS_MIN if name == "grover" else RB_FID_MIN
+            if not score > floor:
+                raise AssertionError(f"11a {name} x{threads}: mean score {score} <= {floor}")
+            del m["rows"]
+    if not (out["no_race"]["grover_max_abs_rho_diff"] <= THREAD_ROW_TOL
+            and out["no_race"]["rb_max_row_diff"] <= THREAD_ROW_TOL):
+        raise AssertionError(f"11a threaded rows differ from the serial rows: "
+                             f"{out['no_race']}")
+    return out
+
+
+# 11b: the second paper's suite (pipelines/gkp_ec_validation) at its default
+# grids, in the port's default complex64 and again in complex128, and the
+# five pipelines/cv_circuits lists through cv.Simulator at d = 1000, cap
+# 100, 10 dB with seeded outcomes. complex128 is held to the thresholds of
+# tests/test_gkp_ec_validation.py; complex64 against complex128 within
+# EC_C64_LIMITS: absolute differences of each output, set before the first
+# card run at ~20x a CPU complex64 run's readings (the fitted widths
+# 1.7e-8, the Wigner difference 6.4e-8 and overlap 1.9e-8 of Knill-Steane,
+# logical fidelities up to 1.3e-6; PERF.md §6).
+EC_EXPERIMENTS = ("steane_ec_width_test", "knill_steane_equivalence_check",
+                  "imperfect_p_gate_experiment", "imperfect_cx_gate_experiment",
+                  "bell_state_comparison")
+EC_C64_LIMITS = {"numeric_q": 4e-7, "numeric_p": 4e-7, "max_wigner_diff": 2e-6,
+                 "rel_wigner_diff": 1e-5, "overlap": 5e-7, "fidelity": 3e-5}
+EC_CIRCUITS = {  # name: (initial state of mode 0 or None, seed)
+    "qunaught_error_correction": ("GKP_H", 7), "quadrature_correction": ("GKP_ZERO", 2),
+    "steane_error_correction": ("GKP_PLUS", 4), "bell_standard": (None, 3),
+    "bell_qunaught": (None, 5)}
+
+
+def ec_thresholds(res: dict) -> dict:
+    """tests/test_gkp_ec_validation.py's pass conditions on one dtype's
+    results."""
+    w, k = res["steane_ec_width_test"], res["knill_steane_equivalence_check"]
+    p, c = res["imperfect_p_gate_experiment"], res["imperfect_cx_gate_experiment"]
+    b = res["bell_state_comparison"]
+    return {
+        "width_q": abs(w["numeric_q"] - w["analytic_q"]) / w["analytic_q"] < 0.05,
+        "width_p": abs(w["numeric_p"] - w["analytic_p"]) / w["analytic_p"] < 0.05,
+        "knill_wigner": k["rel_wigner_diff"] < 1e-4,
+        "knill_overlap": k["overlap"] > 1 - 1e-6,
+        "p_gate_dip": p["after_gate"] < p["initial"] - 0.005,
+        "p_gate_recovery": p["after_projection"] > p["initial"] - 0.001,
+        "cx_gate_dip": c["after_gate"] < c["initial"] - 0.02,
+        "cx_gate_recovery": c["after_projection"] > c["initial"] - 0.005,
+        "bell_entangles": b["qunaught_bell"] > b["qunaught_before"] + 0.3,
+        "bell_qunaught_wins": b["qunaught_bell"] > b["gkp_bell"] + 0.05,
+        "bell_cx_loses": b["gkp_bell"] < b["gkp_before"],
+    }
+
+
+def ec_suite() -> dict:
+    """11b, the six experiments in both dtypes."""
+    from quantum_computations_tpu_torch.pipelines import gkp_ec_validation as val
+    out = {"complex64": {}, "complex128": {}, "seconds": {}}
+    t = time.perf_counter()
+    out["gaussian_product_failed"] = val.gaussian_product_identity_check()
+    out["seconds"]["gaussian_product_identity_check"] = time.perf_counter() - t
+    for label, ctx in (("complex64", contextlib.nullcontext), ("complex128", x64_dtype)):
+        for name in EC_EXPERIMENTS:
+            with ctx():
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                out[label][name] = getattr(val, name)(device="cuda")
+                torch.cuda.synchronize()
+                out["seconds"][f"{name}:{label}"] = time.perf_counter() - t
+    diffs = {}
+    for name in EC_EXPERIMENTS:
+        for key, want in out["complex128"][name].items():
+            limit = EC_C64_LIMITS.get(key, EC_C64_LIMITS["fidelity"])
+            diffs[f"{name}:{key}"] = (abs(out["complex64"][name][key] - want), limit)
+    out["c64_vs_c128"] = diffs
+    out["thresholds"] = {label: ec_thresholds(out[label]) for label in ("complex64", "complex128")}
+    log(f"11b gkp_ec_validation at default grids: complex128 {out['complex128']}; "
+        f"complex64 {out['complex64']}; Gaussian-product failures "
+        f"{out['gaussian_product_failed']}; seconds {out['seconds']}")
+    log(f"11b complex64 vs complex128 (|diff|, limit): {diffs}; JAX test thresholds "
+        f"{out['thresholds']}")
+    bad = {k: v for k, v in diffs.items() if not v[0] <= v[1]}
+    if bad:
+        raise AssertionError(f"11b complex64 leaves complex128: {bad}")
+    if out["gaussian_product_failed"] or not all(out["thresholds"]["complex128"].values()):
+        raise AssertionError(f"11b complex128 misses the JAX thresholds: {out['thresholds']}")
+    return out
+
+
+def ec_circuits() -> dict:
+    """11b, the five cv_circuits lists through cv.Simulator; phase 7's S
+    and Q lists against cv_circuits'."""
+    from quantum_computations_tpu_torch.config import SVDOptions
+    from quantum_computations_tpu_torch.cv import MPS, Simulator, State, gates as cg
+    from quantum_computations_tpu_torch.dv import qop
+    from quantum_computations_tpu_torch.gkp import full_logical_density_mps
+    from quantum_computations_tpu_torch.pipelines import cv_circuits as cc
+
+    def fields(gates):
+        return [(type(g).__name__, {k: repr(v) for k, v in sorted(vars(g).items())})
+                for g in gates]
+
+    same = {"S": fields(cv_circuit("S", cg, State)) == fields(cc.steane_error_correction(CV_EPS)),
+            "Q": fields(cv_circuit("Q", cg, State)) == fields(cc.qunaught_error_correction(CV_EPS))}
+    if not all(same.values()):
+        raise AssertionError(f"11b phase 7's circuits differ from cv_circuits': {same}")
+    out = {"phase7_lists_equal": same}
+    opts = SVDOptions(max_bond_dim=100, rel_err=1e-2)
+    for name, (init, seed) in EC_CIRCUITS.items():
+        initial = [getattr(State, init).eval(CV_QS, CV_EPS, device="cuda")] if init else []
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        sim = Simulator(getattr(cc, name)(CV_EPS), rng_seed=seed, svd_options=opts)
+        mps = sim.run(MPS(CV_QS, initial, device="cuda"))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t
+        rho = full_logical_density_mps(mps, normalised=True).cpu().to(torch.complex128)
+        row = {"seconds": seconds, "modes": len(mps), "outcomes": len(sim.results),
+               "norm": float(mps.norm()), "bonds": kept_ranks(mps)}
+        if name == "quadrature_correction":  # tests/test_cv_circuits.py's condition
+            row["z_weight"] = float(rho[0, 0].real + rho[1, 1].real)
+        if name == "bell_qunaught":
+            bell = torch.zeros(4, dtype=torch.complex128)
+            bell[0] = bell[3] = 2**-0.5
+            row["bell_fidelity"] = float(qop.fidelity(bell, rho))
+        out[name] = row
+        if not (np.isfinite(row["norm"]) and row["norm"] > 0
+                and row.get("z_weight", 1.0) > 0.95 and row.get("bell_fidelity", 1.0) > 0.8):
+            raise AssertionError(f"11b {name}: {row}")
+    log(f"11b cv_circuits through cv.Simulator at d = {len(CV_QS)}, cap 100: {out}")
+    return out
+
+
+def ec_path() -> dict:
+    """Phase 11b."""
+    result = {}
+    with Phase("11b gkp_ec_validation at its default grids, complex64 and complex128"):
+        result["validation"] = ec_suite()
+    with Phase("11b cv_circuits through cv.Simulator"):
+        result["circuits"] = ec_circuits()
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2543,6 +2908,10 @@ def main() -> int:
     print(json.dumps({"rb_path": rb_result, "card": card}), flush=True)
     grover_result = grover_path()
     print(json.dumps({"grover_path": grover_result, "card": card}, default=float), flush=True)
+    threads_result = threads_path()
+    print(json.dumps({"threads_path": threads_result, "card": card}, default=float), flush=True)
+    ec_result = ec_path()
+    print(json.dumps({"ec_path": ec_result, "card": card}, default=float), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

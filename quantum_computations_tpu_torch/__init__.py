@@ -29,7 +29,12 @@ Ported so far:
 - the whole-circuit engine :class:`.gkp.compiled.CompiledGKP` (static
   caps, device control flow) and the research pipelines of
   :mod:`.pipelines` (Grover eager, batched and compiled, RB eager and
-  compiled, analysis, tomography, Clifford fidelity).
+  compiled, analysis, tomography, Clifford fidelity);
+- the threaded runners of ``rb_batched`` and ``grover_batched`` (one
+  engine per Python thread, each on a CUDA stream of its own), the
+  second paper's pipelines (:mod:`.pipelines.cv_circuits`,
+  :mod:`.pipelines.gkp_ec`, :mod:`.pipelines.gkp_ec_validation`), and
+  the host-side :mod:`.distill` and :mod:`.utils.colour`.
 """
 
 from . import config

@@ -5,16 +5,18 @@
 - :mod:`.circuits`        — DV circuit builders (Grover, oracles, CCZ)
 - :mod:`.grover`          — GKP Grover sweep on the eager engine (``gkp_grover.dat``)
 - :mod:`.grover_batched`  — Grover at production parameters on
-  :class:`..gkp.batched.BatchedGKP` (single engine stream)
+  :class:`..gkp.batched.BatchedGKP` (one or more engine threads, each on
+  a CUDA stream of its own)
 - :mod:`.grover_compiled` — Grover sweep on :class:`..gkp.compiled.CompiledGKP`
 - :mod:`.rb`              — random RB circuits and the eager RB sweep (``gkp_rb.dat``)
 - :mod:`.rb_batched`      — randomised benchmarking on :class:`..gkp.batched.BatchedGKP`
-  (``gkp_rb_batched.dat`` rows of {db, depth, fidelity, purity, trace})
+  (``gkp_rb_batched.dat`` rows of {db, depth, fidelity, purity, trace};
+  one or more engine threads)
 - :mod:`.rb_compiled`     — RB on :class:`..gkp.compiled.CompiledGKP`
 - :mod:`.analysis`        — RB fits, Grover success curves, Clifford summaries
 - :mod:`.tomography`      — process tomography (numpy path, torch device core)
 - :mod:`.clifford_fidelity` — Clifford-encoding fidelity (``gkp_cliff.dat``)
-
-Not ported yet: ``cv_circuits``, ``gkp_ec``, ``gkp_ec_validation`` and the
-threaded runners of ``rb_batched`` and ``grover_batched``.
+- :mod:`.cv_circuits`     — the GKP error-correction experiments' CV gate lists
+- :mod:`.gkp_ec`          — EC projectors and the dense-grid logical density
+- :mod:`.gkp_ec_validation` — the second paper's numerical tests and figures
 """

@@ -1,16 +1,21 @@
 """Shared pipeline infrastructure (counterpart of
 ``quantum_computations_tpu/pipelines/common.py``): dataclass configs with a
-CLI, and the whole-file JSON ``.dat`` output the reference's analysis
-reads. The JAX package's persistent compile cache has no counterpart.
+CLI, the whole-file JSON ``.dat`` output the reference's analysis reads,
+and the engine threads of the batched pipelines (:func:`run_engines`).
+The JAX package's persistent compile cache has no counterpart.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import logging
 import os
+import threading
+
+import torch
 
 
 def write_data(path: str, data: list[dict]):
@@ -50,3 +55,29 @@ def config_cli(config_cls, argv=None):
             parser.add_argument(arg, type=str, default=default)
     ns = parser.parse_args(argv)
     return config_cls(**{f.name: getattr(ns, f.name) for f in dataclasses.fields(config_cls)})
+
+
+def run_engines(work, runners, errors: list) -> None:
+    """``work(runner)`` in one Python thread per engine, each on a CUDA
+    stream of its own (PyTorch's current stream is thread-local; on the
+    CPU no stream is made), so one engine's dispatches go on while
+    another waits on a fetch. A worker's exception is appended to
+    ``errors``, which ``work`` reads to stop early, and the first is
+    raised once every thread has joined."""
+    def body(runner):
+        try:
+            stream = (torch.cuda.stream(torch.cuda.Stream(runner.device))
+                      if runner.device.type == "cuda" else contextlib.nullcontext())
+            with stream:
+                work(runner)
+        except Exception as exc:  # raised in the caller's thread after join
+            errors.append(exc)
+
+    threads = [threading.Thread(target=body, args=(r,), name=f"engine-{i}")
+               for i, r in enumerate(runners)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise errors[0]

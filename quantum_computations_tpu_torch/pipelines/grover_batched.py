@@ -11,8 +11,16 @@ simulation_time, rng_seed, rng_lane} and a ``.meta.json`` row per dB, the
 JAX package's schemas; :func:`summarize` gives the mean success per
 epsilon.
 
-Deliberate differences from the JAX package: one engine stream (the
-threaded runner, ``QCT_GROVER_THREADS``, is not ported); no compile cache
+``GroverBatchedConfig.threads`` engines per dB run in as many Python
+threads, each on a CUDA stream of its own (:func:`.common.run_engines`);
+every batch is then a full ``batch``, its seed is reserved under the lock,
+and rows keep unique (``rng_seed``, ``rng_lane``) provenance, while the
+dataset's order depends on the interleaving. More than one engine slows
+Grover down on the card (its host work is Python under the GIL), so the
+default is 1.
+
+Deliberate differences from the JAX package: ``threads`` is a config field
+in place of ``QCT_GROVER_THREADS``; no compile cache
 (``setup_compile_cache`` is XLA's); the meta's ``engine`` entries for the
 JAX package's environment knobs record the port's fixed settings (host
 eigh, gram and prerot pair paths on, full FP32 products).
@@ -22,6 +30,7 @@ from __future__ import annotations
 
 import dataclasses
 import logging
+import threading
 from timeit import default_timer as timer
 
 import numpy as np
@@ -30,7 +39,7 @@ from ..gkp import MBGKPCircuit, db2eps
 from ..gkp.batched import BatchedGKP
 from ..gkp.compiled import logical_coeffs
 from ..ops import streamed
-from .common import config_cli, prepare_output, write_data
+from .common import config_cli, prepare_output, run_engines, write_data
 from .grover import grover, success_probability
 
 logger = logging.getLogger(__name__)
@@ -52,9 +61,12 @@ class GroverBatchedConfig:
     data_file: str = "gkp_grover_batched.dat"
     overwrite: bool = False
     device: str = "cuda"
+    # engines (and CUDA streams) per dB; above 1 Grover runs slower: its
+    # host work is Python under the GIL (PERF.md §5, phase 11a)
+    threads: int = 1
 
 
-def _engine_settings(runner: BatchedGKP) -> dict:
+def _engine_settings(runner: BatchedGKP, threads: int) -> dict:
     """The meta's ``engine`` entry, with the JAX package's keys."""
     return {
         "fused_single": runner.fused_single,
@@ -66,7 +78,7 @@ def _engine_settings(runner: BatchedGKP) -> dict:
         "exact_prerot": "1",
         "p1_prec": "highest",
         "tab_prec": "highest",
-        "threads": 1,
+        "threads": threads,
     }
 
 
@@ -85,56 +97,74 @@ def main(config: GroverBatchedConfig | None = None):
 
     data: list[dict] = []
     meta: list[dict] = []
+    n_threads = max(1, int(config.threads))
     for i, db in enumerate([float(x) for x in str(config.dbs).split(",")]):
         eps = float(db2eps(db))
-        runner = BatchedGKP(qs, eps, svd, adaptive=True, granularity="op",
-                            device=config.device)
-        kept = attempted = dropped = 0
+        runners = [BatchedGKP(qs, eps, svd, adaptive=True, granularity="op",
+                              device=config.device) for _ in range(n_threads)]
+        st = {"kept": 0, "attempted": 0, "dropped": 0}
         max_attempts = 3 * config.trajectories + 3 * config.batch
+        lock = threading.Lock()
+        errors: list[Exception] = []
         t_db = timer()
-        while kept < config.trajectories:
-            if attempted >= max_attempts:
-                raise RuntimeError(
-                    f"db={db}: {dropped}/{attempted} trajectories non-finite — "
-                    "aborting instead of resampling forever")
-            n = min(config.batch, config.trajectories - kept)
-            batch_seed = config.rng_seed + 1000 * i + attempted
-            attempted += n
-            t0 = timer()
-            tensors, frames = runner.run_circuit(gkp_circuit, coeffs, n,
-                                                 rng_seed=batch_seed)
-            rho_re, rho_im = (x.double().cpu().numpy()
-                              for x in runner.readout(tensors, frames))
-            batch_secs = timer() - t0
-            for t in range(n):
-                rho = rho_re[t] + 1j * rho_im[t]
-                tr = np.trace(rho).real
-                if not np.isfinite(tr) or tr <= 0:
-                    dropped += 1
-                    logger.warning("dropping non-finite trajectory")
-                    continue
-                kept += 1
-                data.append({
-                    "epsilon": eps,
-                    "rho_real": rho.real.tolist(),
-                    "rho_imag": rho.imag.tolist(),
-                    # the batch's wall time shared by its trajectories;
-                    # provenance (batch seed, lane in the batch)
-                    "simulation_time": round(batch_secs / n, 3),
-                    "rng_seed": int(batch_seed), "rng_lane": int(t),
-                })
-            logger.info("db=%.2f: %d/%d trajectories (%.0fs/batch)",
-                        db, kept, config.trajectories, batch_secs)
-            if config.data_file:
-                write_data(config.data_file, data)
+
+        def work(r: BatchedGKP):  # every thread has joined before the next dB
+            while True:
+                with lock:
+                    if st["kept"] >= config.trajectories or errors:
+                        return
+                    if st["attempted"] >= max_attempts:
+                        raise RuntimeError(
+                            f"db={db}: {st['dropped']}/{st['attempted']} "
+                            "trajectories non-finite — aborting instead of "
+                            "resampling forever")
+                    n = (config.batch if n_threads > 1
+                         else min(config.batch, config.trajectories - st["kept"]))
+                    batch_seed = config.rng_seed + 1000 * i + st["attempted"]
+                    st["attempted"] += n
+                t0 = timer()
+                tensors, frames = r.run_circuit(gkp_circuit, coeffs, n,
+                                                rng_seed=batch_seed)
+                rho_re, rho_im = (x.double().cpu().numpy()
+                                  for x in r.readout(tensors, frames))
+                batch_secs = timer() - t0
+                scored = []
+                for t in range(n):
+                    rho = rho_re[t] + 1j * rho_im[t]
+                    tr = np.trace(rho).real
+                    if not np.isfinite(tr) or tr <= 0:
+                        logger.warning("dropping non-finite trajectory")
+                        continue
+                    scored.append({
+                        "epsilon": eps,
+                        "rho_real": rho.real.tolist(),
+                        "rho_imag": rho.imag.tolist(),
+                        # the batch's wall time shared by its trajectories;
+                        # provenance (batch seed, lane in the batch)
+                        "simulation_time": round(batch_secs / n, 3),
+                        "rng_seed": int(batch_seed), "rng_lane": int(t),
+                    })
+                with lock:
+                    st["kept"] += len(scored)
+                    st["dropped"] += n - len(scored)
+                    data.extend(scored)
+                    logger.info("db=%.2f: %d/%d trajectories (%.0fs/batch)",
+                                db, st["kept"], config.trajectories, batch_secs)
+                    if config.data_file:
+                        write_data(config.data_file, data)
+
+        if n_threads > 1:
+            run_engines(work, runners, errors)
+        else:
+            work(runners[0])
         dt = timer() - t_db
         meta.append({
-            "db": float(db), "epsilon": eps, "samples": kept,
-            "attempted": attempted, "dropped": dropped,
-            "drop_rate": dropped / max(1, attempted),
+            "db": float(db), "epsilon": eps, "samples": st["kept"],
+            "attempted": st["attempted"], "dropped": st["dropped"],
+            "drop_rate": st["dropped"] / max(1, st["attempted"]),
             "seconds": round(dt, 1),
-            "sec_per_traj": round(dt / max(1, attempted), 2),
-            "engine": _engine_settings(runner),
+            "sec_per_traj": round(dt / max(1, st["attempted"]), 2),
+            "engine": _engine_settings(runners[0], n_threads),
         })
         if config.data_file:
             write_data(config.data_file + ".meta.json", meta)

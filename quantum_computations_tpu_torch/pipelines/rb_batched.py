@@ -8,14 +8,20 @@ trajectory's raw (not normalised) logical density scored against the
 exact DV state: fidelity <psi|rho|psi>, purity tr(rho^2) and the raw
 trace. Output: ``.dat`` rows of {db, depth, fidelity, purity, trace} and a
 ``.meta.json`` row per cell, the JAX package's schemas, with ``engine``
-naming the port's settings. The threaded sampler (``QCT_RB_THREADS``) is
-not ported yet.
+naming the port's settings.
+
+``RBBatchedConfig.threads`` engines per dB (the JAX package's
+``QCT_RB_THREADS``; the port reads no environment knob) sample a cell in
+as many Python threads, each engine on a CUDA stream of its own
+(:func:`.common.run_engines`): while one waits on a fetch or a cuSOLVER
+``eigh``, another's dispatches keep the card busy.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import logging
+import threading
 from timeit import default_timer as timer
 
 import numpy as np
@@ -27,7 +33,7 @@ from ..gkp import db2eps
 from ..gkp.batched import BatchedGKP
 from ..gkp.compiled import logical_coeffs
 from ..ops import streamed
-from .common import config_cli, prepare_output, write_data
+from .common import config_cli, prepare_output, run_engines, write_data
 from .rb import random_circ
 
 logger = logging.getLogger(__name__)
@@ -50,7 +56,8 @@ def _dv_state_np(circ, N: int) -> np.ndarray:
 
 def sample_depth_batched(runner: BatchedGKP, db: float, depth: int,
                          num_samples: int, batch: int, rng,
-                         stats: dict | None = None) -> list[dict]:
+                         stats: dict | None = None,
+                         runners: list[BatchedGKP] | None = None) -> list[dict]:
     """RB samples for one (db, depth) cell: full batches of ``batch``
     trajectories of freshly drawn random circuits until ``num_samples``
     rows, each scored against the exact DV state.
@@ -58,6 +65,12 @@ def sample_depth_batched(runner: BatchedGKP, db: float, depth: int,
     Non-finite trajectories are dropped and resampled, and counted in
     ``stats`` ({"attempted", "dropped"}); a cell aborts after
     3 num_samples + 3 batch attempts.
+
+    ``runners`` (more than one): one circuit-batch stream per engine, in
+    Python threads on CUDA streams of their own. Every row is still a
+    full batch of a freshly drawn circuit, but which thread draws which
+    circuit depends on the interleaving, so the dataset's composition is
+    not bit-reproducible.
     """
     N = 2
     rng = np.random.default_rng(rng)
@@ -66,26 +79,40 @@ def sample_depth_batched(runner: BatchedGKP, db: float, depth: int,
     stats.setdefault("attempted", 0)
     stats.setdefault("dropped", 0)
     max_attempts = 3 * num_samples + 3 * batch
-    while len(rows) < num_samples:
-        if stats["attempted"] >= max_attempts:
-            raise RuntimeError(
-                f"cell (db={db}, depth={depth}): {stats['dropped']} of "
-                f"{stats['attempted']} trajectories non-finite — aborting "
-                "instead of resampling forever")
-        dv_circ, gkp_circ = random_circ(N, depth, rng)
-        t_batch = timer()
-        tensors, frames = runner.run_circuit(
-            gkp_circ, logical_coeffs([DVState.ZERO] * N), batch,
-            rng_seed=int(rng.integers(2**31)))
-        rho_re, rho_im = (x.cpu().numpy() for x in runner.readout(tensors, frames))
-        logger.info("db=%.3f depth=%d: batch of %d in %.0fs (%d/%d)",
-                    db, depth, batch, timer() - t_batch, len(rows) + batch,
-                    num_samples)
-        stats["attempted"] += batch
-        scored, dropped = _score_batch(rho_re, rho_im, _dv_state_np(dv_circ, N),
-                                       db, depth)
-        rows.extend(scored)
-        stats["dropped"] += dropped
+    lock = threading.Lock()
+    errors: list[Exception] = []
+
+    def work(r: BatchedGKP):
+        while True:
+            with lock:
+                if len(rows) >= num_samples or errors:
+                    return
+                if stats["attempted"] >= max_attempts:
+                    raise RuntimeError(
+                        f"cell (db={db}, depth={depth}): {stats['dropped']} "
+                        f"of {stats['attempted']} trajectories non-finite — "
+                        "aborting instead of resampling forever")
+                stats["attempted"] += batch  # reserve this engine's batch
+                dv_circ, gkp_circ = random_circ(N, depth, rng)
+                seed = int(rng.integers(2**31))
+            t_batch = timer()
+            tensors, frames = r.run_circuit(
+                gkp_circ, logical_coeffs([DVState.ZERO] * N), batch, rng_seed=seed)
+            rho_re, rho_im = (x.cpu().numpy() for x in r.readout(tensors, frames))
+            scored, dropped = _score_batch(rho_re, rho_im,
+                                           _dv_state_np(dv_circ, N), db, depth)
+            with lock:
+                rows.extend(scored)
+                stats["dropped"] += dropped
+                logger.info("db=%.3f depth=%d: batch of %d in %.0fs (%d/%d)",
+                            db, depth, batch, timer() - t_batch, len(rows),
+                            num_samples)
+
+    runners = runners or [runner]
+    if len(runners) > 1:
+        run_engines(work, runners, errors)
+    else:
+        work(runners[0])
     return rows
 
 
@@ -125,6 +152,7 @@ class RBBatchedConfig:
     data_file: str = "gkp_rb_batched.dat"
     overwrite: bool = False
     device: str = "cuda"
+    threads: int = 1                  # engines (and CUDA streams) per dB
 
 
 def main(config: RBBatchedConfig | None = None):
@@ -137,14 +165,17 @@ def main(config: RBBatchedConfig | None = None):
 
     data: list[dict] = []
     meta: list[dict] = []
+    n_threads = max(1, int(config.threads))
     for db in [float(x) for x in str(config.dbs).split(",")]:
-        runner = BatchedGKP(qs, float(db2eps(db)), svd, adaptive=True,
-                            granularity="op", device=config.device)
+        runners = [BatchedGKP(qs, float(db2eps(db)), svd, adaptive=True,
+                              granularity="op", device=config.device)
+                   for _ in range(n_threads)]
+        runner = runners[0]
         for depth in [int(x) for x in str(config.depths).split(",")]:
             t0 = timer()
             stats: dict = {}
             cell = sample_depth_batched(runner, db, depth, config.num_samples,
-                                        config.batch, rng, stats)
+                                        config.batch, rng, stats, runners=runners)
             data += cell
             dt = timer() - t0
             fids = [r["fidelity"] for r in cell]
@@ -167,6 +198,7 @@ def main(config: RBBatchedConfig | None = None):
                     "rank_track": runner._tracking_active,
                     "power_iters": streamed.effective_power_iters(4),
                     "bs_decomp": streamed._BS_DECOMP,
+                    "threads": n_threads,
                 },
             })
             logger.info("db=%.3f depth=%d: %d samples in %.1fs (%d dropped)",

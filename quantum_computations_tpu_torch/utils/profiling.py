@@ -17,7 +17,7 @@ Usage::
         sim.run(state)
 
 :class:`WallClock` and :func:`span` are the host wall-clock attribution of
-the JAX package, unchanged.
+the JAX package; a span's seconds sum over the threads that enter it.
 """
 
 from __future__ import annotations
@@ -25,6 +25,7 @@ from __future__ import annotations
 import contextlib
 import itertools
 import os
+import threading
 import time
 
 import torch
@@ -69,6 +70,7 @@ class WallClock:
 
     enabled = bool(os.environ.get("QCT_TIMING"))
     _acc: dict[str, list] = {}
+    _lock = threading.Lock()  # engine threads add to the same spans
 
     @classmethod
     def enable(cls, on: bool = True):
@@ -88,9 +90,11 @@ class WallClock:
         try:
             yield
         finally:
-            slot = cls._acc.setdefault(label, [0.0, 0])
-            slot[0] += time.perf_counter() - t0
-            slot[1] += 1
+            dt = time.perf_counter() - t0
+            with cls._lock:
+                slot = cls._acc.setdefault(label, [0.0, 0])
+                slot[0] += dt
+                slot[1] += 1
 
     @classmethod
     def table(cls) -> dict[str, dict]:

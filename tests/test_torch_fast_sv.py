@@ -620,6 +620,16 @@ def test_port_imports_no_jax():
             "import quantum_computations_tpu_torch.pipelines.analysis\n"
             "import quantum_computations_tpu_torch.pipelines.tomography\n"
             "import quantum_computations_tpu_torch.pipelines.clifford_fidelity\n"
+            "import quantum_computations_tpu_torch.pipelines.common\n"
+            "import quantum_computations_tpu_torch.pipelines.cv_circuits\n"
+            "import quantum_computations_tpu_torch.pipelines.gkp_ec\n"
+            "import quantum_computations_tpu_torch.pipelines.gkp_ec_validation\n"
+            "import quantum_computations_tpu_torch.utils.colour\n"
+            "import quantum_computations_tpu_torch.distill\n"
+            "import quantum_computations_tpu_torch.distill.explorer\n"
+            "import quantum_computations_tpu_torch.distill.physical\n"
+            "import quantum_computations_tpu_torch.distill.rates\n"
+            "import quantum_computations_tpu_torch.distill.search\n"
             "new = set(sys.modules) - before\n"
             "bad = sorted(m for m in new if m.split('.')[0] in "
             "('jax', 'jaxlib', 'quantum_computations_tpu'))\n"

@@ -391,10 +391,13 @@ def test_pipeline_files_follow_the_jax_schemas(tmp_path):
     (trbc, jrbc, "RBCompiledConfig"), (tcf, jcf, "CliffordConfig")])
 def test_configs_and_cli_match_jax(module, jmodule, name):
     """The same defaults and flags; the port adds ``device`` (default
-    ``cuda``)."""
+    ``cuda``), and ``GroverBatchedConfig`` ``threads`` (default 1, the JAX
+    package's ``QCT_GROVER_THREADS``)."""
     for argv in ([], ["--overwrite", "--rng-seed", "7"] if name != "CliffordConfig"
                  else ["--overwrite", "--num-cliffords", "7"]):
         got = vars(config_cli(getattr(module, name), argv))
         want = vars(jcli(getattr(jmodule, name), argv))
         assert got.pop("device") == "cuda"
+        if name == "GroverBatchedConfig":
+            assert got.pop("threads") == 1
         assert got == want
