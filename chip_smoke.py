@@ -67,12 +67,27 @@ Then engine threads and the second paper (phase 11): 11a 10a's Grover
 cell through ``grover_batched.main`` and bench.py's RB settings through
 ``rb_batched.sample_depth_batched(runners=...)``, each with 1, 2 and 4
 engines (one Python thread and one CUDA stream per engine): s per
-trajectory, host syncs, peak memory and the busy share over all streams,
-and every threaded row against the serial row of the same seed; 11b the
+trajectory, host syncs, peak memory and, at one engine, the busy share
+over all streams, and every threaded row against the serial row of the same seed; 11b the
 ``gkp_ec_validation`` experiments at their default grids in complex64 and
 complex128 (complex64 within ``EC_C64_LIMITS`` of complex128, complex128
 held to the JAX tests' thresholds) and the five ``cv_circuits`` lists
 through ``cv.Simulator`` at d = 1000, cap 100, with their times.
+
+Then the sharded engines on ``torch.distributed`` (phase 12), each world
+started by ``parallel.launch`` (spawned ranks, a ``FileStore``): 12b a
+world of 4 ranks on the one card over gloo runs ``ShardMapStateVector(28)``
+(a mixed circuit with gates on rank-bit qubits, ``run_fused_slab`` with its
+planner, a measurement of a rank-bit qubit, samples) and
+``ShardedStateVector(28)``; 12a a world of one under NCCL runs
+``ShardMapStateVector(30)`` through ``run_fused_slab``, ``measure`` and
+``sample``, every marginal and 64 amplitudes held against
+``FastStatevector(30)`` within limits read at N = 26 against complex128,
+then 12b's steps as the reference of the world of 4; 12c
+``BatchedGKP.run_circuit(data_sharding=data_mesh())`` on bench.py's
+workload at 1, 2 and 4 ranks and 10a's Grover cell at 1 and 4, every row
+against the serial rows of the same seed. Each world's time, peak memory
+per rank, host syncs and exchange times are printed.
 
 Prints one line per phase with its wall time, JSON lines of the paths'
 numbers, then the card's name and power limit, a JSON line of per-kernel
@@ -2142,13 +2157,14 @@ def grover_path() -> dict:
 # threads; at THREAD_TRACED counts the same run is also traced for the
 # device-busy share (the union of device intervals over every stream), so
 # its time includes the tracer's cost. The trace costs ~30 us of host
-# time per device event after the run, which is why the 2-engine run is
-# not traced. Rows must not depend on the thread count: a threaded Grover
+# time per device event after the run (~30 s for a 4-engine run, whose
+# busy share PR 11's runs recorded), which is why only the 1-engine runs
+# are traced. Rows must not depend on the thread count: a threaded Grover
 # row equals the serial row of its (rng_seed, rng_lane), and the threaded
 # RB rows and the serial rows of the same circuits (the shared generator
 # draws them in the same order) pair up both ways, to THREAD_ROW_TOL.
 THREAD_COUNTS = (1, 2, 4)
-THREAD_TRACED = (1, 4)
+THREAD_TRACED = (1,)
 THREAD_ROW_TOL = 1e-6
 THREADS_DATA_DIR = os.path.join("profile_traces", "threads")  # ignored by git
 
@@ -2487,6 +2503,466 @@ def ec_path() -> dict:
         result["circuits"] = ec_circuits()
     return result
 
+
+# -- phase 12: the sharded engines on torch.distributed ------------------------
+# 12a: ShardMapStateVector(30) on a world of one under NCCL (a FileStore
+# rendezvous, so NCCL's all_reduce, gathers and broadcasts run), phase 4's
+# chains and a seeded layer of rotations and CZs through run_fused_slab,
+# every marginal and SV_AMPS amplitudes held against FastStatevector(30)
+# in slab mode (the kernel engine) within limits read from the same
+# circuit at N = 26 against the ShardMap engine in complex128; then
+# measure and sample. 12b: a world of SV_RANKS ranks on cuda:0 over gloo
+# (NCCL refuses two ranks on one card) at N = 28, the mixed circuit (gates
+# on rank-bit qubits: lazy swaps), run_fused_slab with its planner, a
+# measurement of a rank-bit qubit and samples, for ShardMapStateVector and
+# ShardedStateVector, held against a world of one within SV_WORLD_TOL.
+# 12c: BatchedGKP.run_circuit(data_sharding=data_mesh()) on bench.py's
+# workload at 1, 2 and 4 ranks on the one card, and 10a's Grover cell at 1
+# and 4, every row within SHARD_ROW_TOL of the serial run of the seed.
+SV_N = 30
+SV_N_CALIB = 26
+SV_N_WORLD = 28
+SV_RANKS = 4
+SV_AMPS = 64
+SV_LIMIT_HEADROOM = 10.0   # N = 30 limit: this times the N = 26 error to complex128
+SV_WORLD_TOL = 1e-5        # 12b: a world of SV_RANKS against a world of one
+SV_SAMPLES = 4096
+SHARD_WORLDS = (1, 2, 4)
+SHARD_GROVER_WORLDS = (1, 4)
+SHARD_GROVER_BATCH = 4
+SHARD_ROW_TOL = 1e-6
+
+
+def sv_slab_circuit(n: int) -> list:
+    """Phase 4's chains a and b at width n, then a seeded layer of random
+    rotations on every qubit and CZ on neighbouring pairs."""
+    from quantum_computations_tpu_torch.dv import qop
+    H, T = np.asarray(qop.H), np.asarray(qop.T)
+    spread = list(dict.fromkeys((3 + 2 * i) % (n - 1) for i in range(14)))
+    gates = [(H, (q,)) for q in (spread * 2)[:24]]
+    gates += [(H, (q,)) for q in range(n - 7, n)] + [(T, (q,)) for q in range(n - 7, n)]
+    rng = np.random.default_rng(1200 + n)
+    gates += [(random_unitary(2, rng), (q,)) for q in range(n)]
+    gates += [(np.asarray(qop.CZ), (q, q + 1)) for q in range(0, n - 1, 2)]
+    return gates
+
+
+def sv_mixed_circuit(n: int) -> list:
+    """tests/test_shardmap_sv.py's mixed circuit at width n: gates on the
+    leading (rank-bit) qubits, across and on local qubits."""
+    from quantum_computations_tpu_torch.dv import qop
+    rng = np.random.default_rng(1300 + n)
+    return [(qop.H, (0,)), (random_unitary(4, rng), (0, n - 1)), (qop.CZ, (1, 2)),
+            (random_unitary(2, rng), (5,)), (random_unitary(4, rng), (2, 0)),
+            (qop.CX, (n - 11, 3)), (random_unitary(4, rng), (1, n - 2)), (qop.H, (2,))]
+
+
+def sv_sharded_circuit(n: int) -> list:
+    """ShardedStateVector's circuit: the mixed circuit, then the seeded
+    layer of sv_slab_circuit (rotations on every qubit, CZ on pairs)."""
+    return sv_mixed_circuit(n) + sv_slab_circuit(n)[-(n + n // 2):]
+
+
+def amp_indices(n: int) -> np.ndarray:
+    return np.random.default_rng(1400 + n).integers(0, 1 << n, SV_AMPS)
+
+
+def physical(idx: np.ndarray, n: int, pos) -> np.ndarray:
+    """Basis indices with logical bit q moved to physical bit pos[q] (both
+    MSB first)."""
+    out = np.zeros_like(idx)
+    for q in range(n):
+        out |= ((idx >> (n - 1 - q)) & 1) << (n - 1 - pos[q])
+    return out
+
+
+def sm_readout(sv, idx) -> tuple[np.ndarray, np.ndarray]:
+    """(every qubit's marginal (N, 2), the amplitudes at logical ``idx``)
+    of a ShardMapStateVector, on every rank."""
+    marg = torch.stack([sv.probabilities(q) for q in range(sv.N)]).double().cpu().numpy()
+    phys = physical(idx, sv.N, sv.slot_of)
+    own = np.nonzero((phys >> sv.L) == sv.mesh.rank)[0]
+    vals = torch.zeros(len(idx), dtype=sv.state.dtype, device=sv.device)
+    if len(own):
+        loc = torch.from_numpy(phys[own] & ((1 << sv.L) - 1)).to(sv.device)
+        vals[torch.from_numpy(own).to(sv.device)] = sv.state[loc]
+    return marg, sv.mesh.all_reduce(vals).cpu().numpy().astype(np.complex128)
+
+
+def ssv_readout(sv, idx) -> tuple[np.ndarray, np.ndarray]:
+    """The same of a ShardedStateVector (amplitudes through ``amplitude``)."""
+    marg = torch.stack([sv.probabilities(q) for q in range(sv.N)]).double().cpu().numpy()
+    amps = [complex(sv.amplitude([(int(i) >> (sv.N - 1 - q)) & 1 for q in range(sv.N)]))
+            for i in idx]
+    return marg, np.asarray(amps)
+
+
+def fast_readout(sv, idx) -> tuple[np.ndarray, np.ndarray]:
+    marg = torch.stack([sv.probabilities(q) for q in range(sv.N)]).double().cpu().numpy()
+    phys = torch.from_numpy(physical(idx, sv.N, sv.axis_of)).cuda()
+    return marg, (sv.re[phys].double() + 1j * sv.im[phys].double()).cpu().numpy()
+
+
+def readout_diff(a, b) -> dict:
+    return {"marginal": float(np.abs(a[0] - b[0]).max()),
+            "amplitude": float(np.abs(a[1] - b[1]).max())}
+
+
+def plan_counts(plan) -> dict:
+    kinds = [op[0] for op in plan]
+    return {k: kinds.count(k) for k in sorted(set(kinds))}
+
+
+def rank_gen(seed: int) -> torch.Generator:
+    return torch.Generator().manual_seed(seed)
+
+
+def mesh_barrier(mesh):
+    mesh.all_reduce(torch.zeros(1, device=mesh.device))
+    torch.cuda.synchronize()
+
+
+def sample_check(bits, marg, q, outcome, label: str):
+    """Samples of a state measured on qubit ``q``: that qubit is
+    ``outcome`` in every sample, the others' frequencies within 5 standard
+    errors of their marginals."""
+    if not (bits[:, q] == outcome).all():
+        raise AssertionError(f"{label}: a sample left the measured qubit {q}")
+    p1 = marg[:, 1]
+    se = np.maximum(np.sqrt(p1 * (1 - p1) / len(bits)), 1e-3)
+    worst = float(np.max(np.abs(bits.mean(0) - p1) / se))
+    if not worst < 5:
+        raise AssertionError(f"{label}: sample frequencies {worst:.1f} SE off the marginals")
+    return worst
+
+
+def gloo_cuda_check(mesh) -> dict:
+    """all_to_all_single and all_reduce on CUDA tensors over this world's
+    backend: raises if the backend refuses them."""
+    send = torch.full((4,), complex(mesh.rank, 1), dtype=torch.complex64, device=mesh.device)
+    partner = mesh.rank ^ 1
+    recv = mesh.exchange(send, partner)
+    total = mesh.all_reduce(torch.ones(1, device=mesh.device))
+    if recv.real[0].item() != partner or total.item() != mesh.size:
+        raise AssertionError(f"collectives on CUDA tensors gave {recv.tolist()}, "
+                             f"{total.item()}")
+    return {"all_to_all_single": "ok", "all_reduce": "ok",
+            "backend": str(torch.distributed.get_backend(mesh.group))}
+
+
+def sv_world_many(mesh) -> dict:
+    """12b on every rank of a world of SV_RANKS on one card."""
+    from quantum_computations_tpu_torch.parallel import ShardedStateVector, qubit_mesh
+    from quantum_computations_tpu_torch.parallel.shardmap_sv import ShardMapStateVector
+    torch.backends.cuda.matmul.allow_tf32 = False
+    n = SV_N_WORLD
+    out = {"collectives": gloo_cuda_check(mesh)}
+    idx = amp_indices(n)
+    torch.cuda.reset_peak_memory_stats()
+    sv = ShardMapStateVector(n, mesh)
+    mesh_barrier(mesh)
+    t = time.perf_counter()
+    for m, tg in sv_mixed_circuit(n):
+        sv.apply(m, tg)
+    applied = sv.exchanges
+    sv.run_fused_slab(sv_slab_circuit(n))
+    mesh_barrier(mesh)
+    seconds = time.perf_counter() - t
+    pre = sm_readout(sv, idx)
+    q = sv.slot_of.index(0)  # the qubit in rank bit 0 after the plan
+    outcome = sv.measure(q, rank_gen(21))
+    post = sm_readout(sv, idx)
+    bits = sv.sample(rank_gen(22), SV_SAMPLES)
+    worst = sample_check(bits, post[0], q, outcome, "12b ShardMap")
+    # ms per exchange: rank bit 0 with the top local bit, four times
+    mesh_barrier(mesh)
+    t = time.perf_counter()
+    for _ in range(4):
+        sv._swap_global_local(0, sv.k)
+    mesh_barrier(mesh)
+    exchange_ms = (time.perf_counter() - t) / 4 * 1e3
+    out["shardmap"] = dict(
+        seconds=seconds, apply_exchanges=applied, plan=plan_counts(sv.last_plan),
+        a2a=plan_counts(sv.last_plan).get("a2a", 0), slot_of=list(sv.slot_of),
+        measured=q, outcome=outcome, pre=pre, post=post, sample_worst_se=worst,
+        exchange_ms=exchange_ms, half_block_mib=(1 << (n - sv.k - 1)) * 8 / 2**20)
+    del sv
+    ssv = ShardedStateVector(n, qubit_mesh(mesh.size.bit_length() - 1, device=mesh.device))
+    ssv.run_circuit(sv_sharded_circuit(n))
+    pre = ssv_readout(ssv, idx)
+    outcome = ssv.measure(0, rank_gen(23))
+    out["sharded"] = dict(outcome=outcome, pre=pre, post=ssv_readout(ssv, idx))
+    del ssv
+    peak = torch.tensor([torch.cuda.max_memory_allocated() / 2**30], device=mesh.device)
+    out["peak_gib_per_rank"] = mesh.all_gather(peak).tolist()
+    return out
+
+
+def sv_world_one(mesh, many: dict) -> dict:
+    """12a, then 12b's reference, on a world of one."""
+    from quantum_computations_tpu_torch.dv import FastStatevector
+    from quantum_computations_tpu_torch.parallel import ShardedStateVector, qubit_mesh
+    from quantum_computations_tpu_torch.parallel.shardmap_sv import ShardMapStateVector
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {"backend": str(torch.distributed.get_backend(mesh.group))}
+    # the limits: the same circuit at N = 26 against complex128
+    n = SV_N_CALIB
+    idx = amp_indices(n)
+    gates = sv_slab_circuit(n)
+    with x64_dtype():
+        ref = sm_readout(ShardMapStateVector(n, mesh).run_fused_slab(gates), idx)
+    got = sm_readout(ShardMapStateVector(n, mesh).run_fused_slab(gates), idx)
+    fast = fast_readout(FastStatevector(n, device="cuda").run_compiled(gates), idx)
+    calib = {"shardmap_c64": readout_diff(got, ref), "fast_sv": readout_diff(fast, ref)}
+    limits = {k: SV_LIMIT_HEADROOM * max(v[k] for v in calib.values())
+              for k in ("marginal", "amplitude")}
+    out["calibration"] = dict(n=n, errors_to_complex128=calib, limits=limits)
+    torch.cuda.empty_cache()
+    # 12a at full width
+    n = SV_N
+    idx = amp_indices(n)
+    gates = sv_slab_circuit(n)
+    torch.cuda.reset_peak_memory_stats()
+    sv = ShardMapStateVector(n, mesh)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    sv.run_fused_slab(gates)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    got = sm_readout(sv, idx)
+    marg = got[0][:, 1]
+    q = int(np.argmin(np.abs(marg - 0.5)))  # the most uncertain qubit
+    outcome = sv.measure(q, rank_gen(12))
+    post = sm_readout(sv, idx)
+    if abs(post[0][q, outcome] - 1.0) > 1e-5 or abs(float(sv.norm()) - 1.0) > 1e-4:
+        raise AssertionError(f"12a: measuring qubit {q} left {post[0][q]}, norm "
+                             f"{float(sv.norm())}")
+    t = time.perf_counter()
+    bits = sv.sample(rank_gen(13), SV_SAMPLES)
+    sample_s = time.perf_counter() - t
+    worst = sample_check(bits, post[0], q, outcome, "12a")
+    out["main"] = dict(n=n, seconds=seconds, peak_gib=peak, plan=plan_counts(sv.last_plan),
+                       gates=len(gates), measured=q, outcome=outcome,
+                       p_outcome=float(got[0][q, outcome]), sample_seconds=sample_s,
+                       samples=SV_SAMPLES, sample_worst_se=worst,
+                       state_gib=sv.state.numel() * sv.state.element_size() / 2**30)
+    del sv
+    torch.cuda.empty_cache()
+    fast = FastStatevector(n, device="cuda").run_compiled(gates)
+    out["main"]["against_fast_sv"] = readout_diff(got, fast_readout(fast, idx))
+    del fast
+    torch.cuda.empty_cache()
+    # 12b's reference: the same steps on a world of one, its outcomes forced
+    n = SV_N_WORLD
+    idx = amp_indices(n)
+    ref = {}
+    sv = ShardMapStateVector(n, mesh)
+    for m, tg in sv_mixed_circuit(n):
+        sv.apply(m, tg)
+    sv.run_fused_slab(sv_slab_circuit(n))
+    pre = sm_readout(sv, idx)
+    sv.measure(many["shardmap"]["measured"], result=many["shardmap"]["outcome"])
+    ref["shardmap"] = dict(pre=pre, post=sm_readout(sv, idx), plan=plan_counts(sv.last_plan))
+    del sv
+    ssv = ShardedStateVector(n, qubit_mesh(0, device=mesh.device))
+    ssv.run_circuit(sv_sharded_circuit(n))
+    pre = ssv_readout(ssv, idx)
+    ssv.measure(0, result=many["sharded"]["outcome"])
+    ref["sharded"] = dict(pre=pre, post=ssv_readout(ssv, idx))
+    out["world_of_one"] = ref
+    return out
+
+
+def shard_gkp_rank(mesh, runs) -> dict:
+    """12c on every rank: each (workload, batch) through
+    run_circuit(data_sharding=mesh), first in complex128 (the rows held
+    against the serial rows; it also warms the libraries up), then in the
+    port's complex64, timed. The world's time is its slowest rank's."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    for name, batch in runs:
+        circ, coeffs, runner, seed = shard_workload(name)
+        with x64_dtype():
+            frames128, rho128 = shard_rows(runner, circ, coeffs, batch, seed, mesh)
+        mesh_barrier(mesh)
+        torch.cuda.reset_peak_memory_stats()
+        res = {}
+        t = time.perf_counter()
+        syncs = count_sync_total(lambda: res.update(
+            rows=shard_rows(runner, circ, coeffs, batch, seed, mesh)))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t
+        mesh_barrier(mesh)
+        mine = torch.tensor([seconds, torch.cuda.max_memory_allocated() / 2**30, syncs],
+                            dtype=torch.float64, device=mesh.device)
+        per_rank = mesh.all_gather(mine[None]).cpu().numpy()
+        out[name] = dict(
+            batch=batch, ranks=mesh.size, seconds=float(per_rank[:, 0].max()),
+            seconds_per_rank=per_rank[:, 0].tolist(), peak_gib_per_rank=per_rank[:, 1].tolist(),
+            syncs_per_rank=per_rank[:, 2].tolist(),
+            syncs_per_trajectory=float(per_rank[:, 2].sum() / batch),
+            rows=res["rows"], rows128=(frames128, rho128), counts=dict(runner.counts))
+    return out
+
+
+def shard_workload(name: str):
+    """(circuit, coefficients, engine, seed) of 12c's RB (bench.py's
+    workload) or Grover (10a's cell) run."""
+    from quantum_computations_tpu_torch.dv import State
+    from quantum_computations_tpu_torch.gkp.compiled import logical_coeffs
+    if name == "rb":
+        _, circ, runner = rb_workload()
+        return circ, logical_coeffs([State.ZERO] * 2), runner, RB_SEED
+    circ, coeffs = grover_circuit()
+    return circ, coeffs, rb_engine(epsilon=db_to_eps(GROVER_DB)), 42
+
+
+def shard_rows(runner, circ, coeffs, batch, seed, mesh=None):
+    """(frames, raw rho as complex128 numpy) of one batch, data sharded
+    over ``mesh`` (every rank gets the whole batch's rows)."""
+    tensors, frames = runner.run_circuit(circ, coeffs, batch, rng_seed=seed,
+                                         data_sharding=mesh)
+    re, im = runner.readout(tensors, frames)
+    return frames, re.double().cpu().numpy() + 1j * im.double().cpu().numpy()
+
+
+def shard_check(name: str, ranks: int, r: dict, serial):
+    """12c's rows against the serial rows: complex128 within SHARD_ROW_TOL
+    with equal frames (the sharded engine computes the serial run's
+    trajectories); complex64 reported (other batch sizes take other
+    cuBLAS and cuSOLVER kernels), its traces finite and positive."""
+    (f128, rho128), (f64, rho64) = serial
+    frames, rho = r.pop("rows")
+    sf128, srho128 = r.pop("rows128")
+    r.update(frames_equal_serial_c128=bool(np.array_equal(sf128, f128)),
+             max_abs_rho_diff_to_serial_c128=float(np.abs(srho128 - rho128).max()),
+             frames_equal_serial_c64=bool(np.array_equal(frames, f64)),
+             max_abs_rho_diff_to_serial_c64=float(np.abs(rho - rho64).max()),
+             seconds_per_trajectory=r["seconds"] / r["batch"])
+    traces = np.trace(rho, axis1=1, axis2=2).real
+    log(f"12c {name} x{ranks}: {r['seconds_per_trajectory']:.4f} s per trajectory "
+        f"({r['batch']} in {r['seconds']:.3f} s; per rank "
+        f"{[round(x, 3) for x in r['seconds_per_rank']]}); syncs per trajectory "
+        f"{r['syncs_per_trajectory']:.2f}; peak per rank "
+        f"{[round(x, 3) for x in r['peak_gib_per_rank']]} GiB; complex128 rows: frames "
+        f"equal serial {r['frames_equal_serial_c128']}, max |d rho| "
+        f"{r['max_abs_rho_diff_to_serial_c128']:.3e} (tol {SHARD_ROW_TOL}); complex64 "
+        f"rows: frames equal serial {r['frames_equal_serial_c64']}, max |d rho| "
+        f"{r['max_abs_rho_diff_to_serial_c64']:.3e}")
+    if not (r["frames_equal_serial_c128"]
+            and r["max_abs_rho_diff_to_serial_c128"] <= SHARD_ROW_TOL):
+        raise AssertionError(f"12c {name} x{ranks}: complex128 rows differ from the "
+                             f"serial rows")
+    if not (np.all(np.isfinite(traces)) and np.all(traces > 0)):
+        raise AssertionError(f"12c {name} x{ranks}: traces {traces}")
+
+
+def world_many(mesh, runs) -> dict:
+    """12b, then 12c, on every rank of a world of SV_RANKS on one card."""
+    out = sv_world_many(mesh)
+    torch.cuda.empty_cache()
+    out["data_sharded"] = shard_gkp_rank(mesh, runs)
+    return out
+
+
+def world_one(mesh, many: dict, runs) -> dict:
+    """12a and 12b's reference, then 12c, on a world of one."""
+    out = sv_world_one(mesh, many)
+    torch.cuda.empty_cache()
+    out["data_sharded"] = shard_gkp_rank(mesh, runs)
+    return out
+
+
+def shard_runs(ranks: int) -> list:
+    return [("rb", RB_BATCH)] + ([("grover", SHARD_GROVER_BATCH)]
+                                 if ranks in SHARD_GROVER_WORLDS else [])
+
+
+def sharded_path() -> dict:
+    """Phase 12: three worlds (SV_RANKS ranks: 12b and 12c; one rank under
+    NCCL: 12a, 12b's reference and 12c; two ranks: 12c)."""
+    from quantum_computations_tpu_torch.parallel import launch
+    torch.cuda.empty_cache()
+    out = {"data_sharded": {}}
+    with Phase("12c serial reference rows, complex128 and complex64"):
+        serial = {}
+        for name, batch in (("rb", RB_BATCH), ("grover", SHARD_GROVER_BATCH)):
+            circ, coeffs, runner, seed = shard_workload(name)
+            with x64_dtype():
+                rows128 = shard_rows(runner, circ, coeffs, batch, seed)
+            serial[name] = (rows128, shard_rows(runner, circ, coeffs, batch, seed))
+            del runner
+        torch.cuda.empty_cache()
+
+    def data_sharded(ranks, res):
+        for name, r in res.items():
+            shard_check(name, ranks, r, serial[name])
+            out["data_sharded"].setdefault(name, {})[ranks] = r
+
+    # the ranks' C++ warnings (every sync of gloo's own threads under the
+    # sync debug mode of the syncs count) stay off the output
+    os.environ["TORCH_CPP_LOG_LEVEL"] = "ERROR"
+    try:
+        with Phase(f"12b ShardMap and Sharded state vectors at N = {SV_N_WORLD}, then 12c, "
+                   f"{SV_RANKS} ranks on one card (gloo)"):
+            many = launch(world_many, SV_RANKS, shard_runs(SV_RANKS))
+            sm = many["shardmap"]
+            log(f"12b collectives on CUDA tensors over {many['collectives']['backend']}: "
+                f"{many['collectives']}")
+            log(f"12b ShardMap x{SV_RANKS}: mixed circuit and slab plan {sm['seconds']:.3f} "
+                f"s, {sm['apply_exchanges']} lazy-swap exchanges, plan {sm['plan']} "
+                f"({sm['a2a']} a2a steps); {sm['exchange_ms']:.2f} ms per exchange of "
+                f"{sm['half_block_mib']:.0f} MiB; measured qubit {sm['measured']} (rank bit "
+                f"0) -> {sm['outcome']}; samples within {sm['sample_worst_se']:.2f} SE; peak "
+                f"per rank {many['peak_gib_per_rank']} GiB")
+            data_sharded(SV_RANKS, many.pop("data_sharded"))
+        with Phase(f"12a ShardMapStateVector({SV_N}), 12b's reference, then 12c, on a "
+                   f"world of one (NCCL)"):
+            one = launch(world_one, 1, many, shard_runs(1))
+            cal, main = one["calibration"], one["main"]
+            log(f"12a limits from N = {cal['n']} against complex128: errors "
+                f"{cal['errors_to_complex128']}; limits ({SV_LIMIT_HEADROOM:g}x) "
+                f"{cal['limits']}")
+            log(f"12a N = {SV_N} over {one['backend']}: run_fused_slab of {main['gates']} "
+                f"gates {main['seconds']:.3f} s, plan {main['plan']}, state "
+                f"{main['state_gib']:.1f} GiB, peak {main['peak_gib']:.2f} GiB; against "
+                f"FastStatevector({SV_N}) {main['against_fast_sv']}; measured qubit "
+                f"{main['measured']} -> {main['outcome']} (p {main['p_outcome']:.6f}); "
+                f"{main['samples']} samples in {main['sample_seconds']:.3f} s, within "
+                f"{main['sample_worst_se']:.2f} SE")
+            for k, lim in cal["limits"].items():
+                if not main["against_fast_sv"][k] <= lim:
+                    raise AssertionError(f"12a: {k} {main['against_fast_sv'][k]} against "
+                                         f"FastStatevector over its limit {lim}")
+            world = {}
+            for name in ("shardmap", "sharded"):
+                ref = one["world_of_one"][name]
+                world[name] = {s: readout_diff(many[name][s], ref[s]) for s in ("pre", "post")}
+                for s in ("pre", "post"):  # the arrays stay out of the JSON line
+                    many[name][s] = ref[s] = None
+            log(f"12b world of {SV_RANKS} against the world of one (tol {SV_WORLD_TOL}): "
+                f"{world}; plans {many['shardmap']['plan']} and "
+                f"{one['world_of_one']['shardmap']['plan']}")
+            worst = max(v for d in world.values() for s in d.values() for v in s.values())
+            if not worst <= SV_WORLD_TOL:
+                raise AssertionError(f"12b: the world of {SV_RANKS} is {worst} off")
+            if many["shardmap"]["a2a"] + many["shardmap"]["apply_exchanges"] < 1:
+                raise AssertionError("12b ran no exchange")
+            data_sharded(1, one.pop("data_sharded"))
+            out.update(sv_world_of_one=one, sv_world_many=many, sv_world_diff=world)
+        for ranks in SHARD_WORLDS:
+            if ranks not in (1, SV_RANKS):
+                with Phase(f"12c data-sharded BatchedGKP, {ranks} ranks on one card (gloo)"):
+                    data_sharded(ranks, launch(shard_gkp_rank, ranks, shard_runs(ranks)))
+    finally:
+        del os.environ["TORCH_CPP_LOG_LEVEL"]
+    for name, by_ranks in out["data_sharded"].items():
+        base = by_ranks[1]["seconds_per_trajectory"]
+        log(f"12c {name}: s per trajectory " + ", ".join(
+            f"x{k} {v['seconds_per_trajectory']:.4f} ({base / v['seconds_per_trajectory']:.2f}x)"
+            for k, v in sorted(by_ranks.items())))
+    return out
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -2912,6 +3388,8 @@ def main() -> int:
     print(json.dumps({"threads_path": threads_result, "card": card}, default=float), flush=True)
     ec_result = ec_path()
     print(json.dumps({"ec_path": ec_result, "card": card}, default=float), flush=True)
+    sharded_result = sharded_path()
+    print(json.dumps({"sharded_path": sharded_result, "card": card}, default=float), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

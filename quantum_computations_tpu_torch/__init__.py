@@ -5,7 +5,7 @@ imports ``torch`` and ``numpy`` only, never ``jax`` and nothing of the JAX
 package. Entry points run on ``cuda`` unless the caller passes
 ``device="cpu"``; with no CUDA device and none asked for they raise.
 
-Ported so far:
+Ported: every module of the JAX package:
 - the DV large-N state-vector engine (:class:`.dv.FastStatevector`) in its
   slab, window and chain modes, and all four of its hand-written Hopper
   kernels: :func:`.ops.slab_kernels.slab_matmul` (slab mode) and
@@ -34,7 +34,11 @@ Ported so far:
   engine per Python thread, each on a CUDA stream of its own), the
   second paper's pipelines (:mod:`.pipelines.cv_circuits`,
   :mod:`.pipelines.gkp_ec`, :mod:`.pipelines.gkp_ec_validation`), and
-  the host-side :mod:`.distill` and :mod:`.utils.colour`.
+  the host-side :mod:`.distill` and :mod:`.utils.colour`;
+- the mesh engines of :mod:`.parallel` on ``torch.distributed`` (rank
+  meshes and the :func:`.parallel.launch` launcher, the sharded state
+  vectors, Monte-Carlo sweeps) and the data-sharded
+  ``BatchedGKP.run_circuit(data_sharding=)``.
 """
 
 from . import config

@@ -5,7 +5,8 @@ A single-qubit gate pass over a 2^N state vector moves every amplitude for
 8 real FLOPs. Consecutive gates whose combined support fits a window of
 k <= 7 qubits are composed on the host in numpy into one (2^k, 2^k)
 unitary and applied in one pass. The host-side planners below are the JAX
-package's, unchanged; :func:`apply_window_split` is plain PyTorch.
+package's, unchanged; :func:`apply_window` (complex state) and
+:func:`apply_window_split` (split-real planes) are plain PyTorch.
 """
 
 from __future__ import annotations
@@ -17,8 +18,8 @@ import torch
 
 from ..config import full_fp32_matmul
 
-__all__ = ["fuse_windows", "merge_adjacent_windows", "apply_window_split",
-           "MAX_WINDOW_BITS"]
+__all__ = ["fuse_windows", "merge_adjacent_windows", "apply_window",
+           "apply_window_split", "MAX_WINDOW_BITS"]
 
 MAX_WINDOW_BITS = 7  # 2^7 = 128: the widest slab window
 
@@ -173,6 +174,23 @@ def _window_subscripts(rank: int, target_axes: tuple[int, ...]):
         out_sub[ax] = op_out[i]
     return (f"{''.join(op_out)}{''.join(op_in)},"
             f"{''.join(in_sub)}->{''.join(out_sub)}")
+
+
+def apply_window(state: torch.Tensor, u, targets: tuple[int, ...],
+                 num_qubits: int) -> torch.Tensor:
+    """Apply a fused window unitary to a complex state vector, out of place.
+
+    ``u``: (2^k, 2^k), rows and columns over ``targets``; ``targets``:
+    sorted big-endian qubit indices. One grouped einsum (rank <= 2k+1 at
+    any N), in full FP32 for a complex64 state.
+    """
+    k = len(targets)
+    shape, taxes = _grouped_view(num_qubits, tuple(targets))
+    op = torch.as_tensor(u).to(device=state.device, dtype=state.dtype)
+    with full_fp32_matmul():
+        return torch.einsum(_window_subscripts(len(shape), taxes),
+                            op.reshape((2,) * (2 * k)),
+                            state.reshape(shape)).reshape(-1)
 
 
 def apply_window_split(re: torch.Tensor, im: torch.Tensor,

@@ -24,8 +24,14 @@ of the fused path and of rank tracking is :attr:`BatchedGKP.counts`);
 ``fused_single``, ``fused_pair`` and ``track_ranks`` default on with no
 environment variable (``QCT_FUSED_SINGLE``, ``QCT_FUSED_PAIR``,
 ``QCT_RANK_TRACK``); one host ``torch.Generator`` per run in place of
-per-op PRNG keys; syndromes decoded on the host in float64; no
-``data_sharding`` yet.
+per-op PRNG keys; syndromes decoded on the host in float64;
+``run_circuit(data_sharding=)`` takes a 1-D rank mesh
+(:func:`..parallel.data_mesh`) in place of a ``jax.sharding.Sharding``:
+each rank runs its contiguous slice of the batch, draws through a
+:class:`..utils.rng.BatchShard` what the serial run of the same seed draws
+for those trajectories, and takes every rank bound the serial run takes
+from its batch (the maximum over all ranks), so the rows equal the serial
+rows trajectory for trajectory.
 """
 
 from __future__ import annotations
@@ -42,6 +48,7 @@ from ..dv.simulator import ClassicalControl
 from ..ops.fused_gadget import _grid, fused_pair_measure2, fused_single_gadget, pair_measure_path
 from ..utils import as_generator
 from ..utils.profiling import span
+from ..utils.rng import BatchShard
 from .compiled import (ARCTAN2, _bs_split, _homodyne, _insert_bell,
                        _single_gadget, _syndrome_from, _two_mode_gadget,
                        _two_mode_syndromes, bell_vectors, corrected_density,
@@ -110,6 +117,9 @@ class BatchedGKP:
         #   keeps the zero-column mask exactly.
         self._ranks: list[int] | None = None
         self._generator: torch.Generator | None = None
+        # (mesh, rows per rank) of the last run_circuit when it was data
+        # sharded: the batch maxima and readout's gather go over the mesh
+        self._shard = None
         self._basis: tuple[torch.Tensor, torch.Tensor] | None = None
         # Ops run, full and single-bond rank fetches, and the largest
         # bond pair (a, b) each kind of gadget or split met, since
@@ -216,7 +226,8 @@ class BatchedGKP:
             # a streamed split's kept ranks arrive on the host; the right
             # operand's own right bond is unitarily invariant and
             # zero-masked columns map to exact zeros
-            self._ranks[li] = (max(1, int(np.max(ranks))) if ranks is not None
+            self._ranks[li] = (self._batch_max(max(1, int(np.max(ranks))))
+                               if ranks is not None
                                else self._bond_rank_single(out, li))
             return self._trim_with_ranks(out)
         return self._maybe_trim(out)
@@ -263,7 +274,7 @@ class BatchedGKP:
         with span(f"op:fused_pair_fetch[{path}]"):
             packed = packed.cpu().numpy()
         if self._ranks is not None:
-            rank = [max(1, int(packed[0, 2]))] if want_rank else []
+            rank = [self._batch_max(max(1, int(packed[0, 2])))] if want_rank else []
             nr = self._ranks
             if p == m - 1:
                 self._ranks = nr[:m - 1] + rank + nr[m + 2:]
@@ -307,11 +318,19 @@ class BatchedGKP:
                                     self.opts, self._generator, self.qs)
 
     # ------------------------------------------------------------------
+    def _batch_max(self, value: int) -> int:
+        """The batch maximum of a host rank: over all ranks of a sharded run."""
+        return value if self._shard is None else self._shard[0].max_int(value)
+
     def _bond_ranks(self, tensors) -> np.ndarray:
         """Batch-max measured rank of every bond: one fetch of the chain."""
         self.counts["rank_fetch"] += 1
         with span("op:rank_fetch"):
-            return torch.stack([_col_rank(t) for t in tensors[:-1]]).cpu().numpy()
+            ranks = torch.stack([_col_rank(t) for t in tensors[:-1]])
+            if self._shard is not None:
+                mesh = self._shard[0]
+                ranks = mesh.all_reduce(ranks.to(mesh.device), "max")
+            return ranks.cpu().numpy()
 
     @staticmethod
     def _trim_bucket(n: int) -> int:
@@ -365,7 +384,7 @@ class BatchedGKP:
         """Batch-max measured rank of bond ``j`` only (reads ONE tensor)."""
         self.counts["rank1_fetch"] += 1
         with span("op:rank1_fetch"):
-            return max(1, int(_col_rank(tensors[j])))
+            return self._batch_max(max(1, int(_col_rank(tensors[j]))))
 
     # ------------------------------------------------------------------
     def init_tensors(self, coeffs: np.ndarray, batch: int):
@@ -383,28 +402,73 @@ class BatchedGKP:
         The rho is NOT trace-normalised (the reference's convention):
         weight a truncation discarded shows up as a trace deficit and
         counts as infidelity.
+
+        After a data-sharded :meth:`run_circuit`, ``tensors`` is this
+        rank's slice and ``frames`` the gathered frames; every rank returns
+        the whole batch's densities.
         """
+        frames = np.asarray(frames, np.int32)
         with span("readout"):
-            frames = to_device(np.asarray(frames, np.int32), tensors[0].device)
-            return corrected_density(tensors, frames, self.qs)
+            if self._shard is None:
+                return corrected_density(
+                    tensors, to_device(frames, tensors[0].device), self.qs)
+            mesh, counts = self._shard
+            lo = sum(counts[:mesh.rank])
+            hi = lo + counts[mesh.rank]
+            if len(frames) != sum(counts) or tensors[0].shape[0] != hi - lo:
+                raise ValueError(
+                    f"readout after a data-sharded run takes this rank's "
+                    f"{hi - lo} trajectories and the {sum(counts)} gathered "
+                    f"frames, got {tensors[0].shape[0]} and {len(frames)}")
+            rho = corrected_density(
+                tensors, to_device(frames[lo:hi], tensors[0].device), self.qs)
+            return tuple(mesh.gather_rows(x.to(mesh.device), counts).to(x.device)
+                         for x in rho)
 
     # ------------------------------------------------------------------
     def run_circuit(self, circuit: MBGKPCircuit, coeffs: np.ndarray, batch: int,
-                    rng_seed=0):
+                    rng_seed=0, data_sharding=None):
         """Run ``batch`` trajectories of a transpiled circuit. Outcomes and
         sketches are drawn from one host ``torch.Generator`` seeded by
         ``rng_seed``. Returns (tensors [batched], frames (batch, N, 2)
-        numpy)."""
+        numpy).
+
+        ``data_sharding``: a 1-D mesh (:func:`..parallel.data_mesh`), on
+        every rank of which this is called with the same arguments. Each
+        rank runs its contiguous slice of the batch (``batch // D`` rows,
+        one more on the first ``batch % D`` ranks) on this engine's device;
+        the returned tensors are that slice, the frames are gathered on
+        every rank, and each trajectory equals the serial run's.
+        """
         N = circuit._N
-        tensors = self.init_tensors(np.asarray(coeffs, np.float32), batch)
+        self._shard = None
+        if data_sharding is None:
+            rows, self._generator = batch, as_generator(rng_seed)
+        else:
+            mesh = data_sharding
+            D = mesh.size
+            if batch < D:
+                raise ValueError(f"a batch of {batch} over {D} ranks")
+            if not isinstance(rng_seed, (int, np.integer)):
+                raise ValueError("a data-sharded run takes an integer rng_seed")
+            counts = [batch // D + (r < batch % D) for r in range(D)]
+            lo = sum(counts[:mesh.rank])
+            rows = counts[mesh.rank]
+            self._shard = (mesh, counts)
+            self._generator = BatchShard(rng_seed, batch, lo, lo + rows)
+        tensors = self.init_tensors(np.asarray(coeffs, np.float32), rows)
         # product initial state: every bond has capacity (and rank) 1
         self._ranks = [1] * (N - 1) if self._tracking_active else None
-        self._generator = as_generator(rng_seed)
         try:
-            return self._run_layers(circuit, tensors, batch)
+            tensors, frame = self._run_layers(circuit, tensors, rows)
         finally:
             self._ranks = None  # circuit-scoped; do not leak across calls
             self._generator = None
+        if self._shard is not None:
+            mesh, counts = self._shard
+            frame = mesh.gather_rows(torch.from_numpy(frame).to(mesh.device),
+                                     counts).cpu().numpy()
+        return tensors, frame
 
     def _run_layers(self, circuit, tensors, batch):
         N = circuit._N

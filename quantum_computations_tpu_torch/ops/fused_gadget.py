@@ -44,6 +44,7 @@ import numpy as np
 import torch
 
 from ..config import full_fp32_matmul, to_device
+from ..utils.rng import draw_batch
 from .interp import rotation
 from .linalg import _ns_inv_sqrt
 
@@ -110,11 +111,12 @@ def _grid(qs, device) -> torch.Tensor:
 
 
 def _uniforms(n: int, generator: torch.Generator | None, device) -> torch.Tensor:
-    """``n`` float64 uniforms in [0, 1) from ``generator``, on ``device``."""
+    """``n`` float64 uniforms in [0, 1) from ``generator``, on ``device``
+    (one per trajectory: :func:`..utils.rng.draw_batch`)."""
     if generator is None:
         raise ValueError("an unforced homodyne requires a torch.Generator")
-    u = torch.rand(n, generator=generator, dtype=torch.float64,
-                   device=generator.device)
+    u = draw_batch(generator, n, lambda m: torch.rand(
+        m, generator=generator, dtype=torch.float64, device=generator.device))
     return to_device(u, device)
 
 

@@ -31,6 +31,7 @@ import math
 import torch
 
 from ..config import full_fp32_matmul, to_device
+from ..utils.rng import draw_rows
 
 # Fixed oversampling for the randomized SVD.
 OVERSAMPLE = 10
@@ -173,14 +174,15 @@ def randomized_range_finder(A: torch.Tensor, l: int, q: int,
     """Find Q (n x l) with Q Q^H A ~= A via Gaussian sketch + q power
     iterations. ``sketch`` (an (A.shape[-1], l) real array, per matrix of
     a batch) replaces the draw from ``generator``; a batch draws one
-    sketch per matrix, in order."""
+    sketch per matrix, in order (:func:`..utils.rng.draw_rows`)."""
     if sketch is not None:
         O = torch.as_tensor(sketch).to(device=A.device, dtype=A.dtype)
     elif A.ndim == 2:
         O = _gaussian_sketch(A.shape[1], l, generator, A)
     else:
-        O = torch.stack([_gaussian_sketch(A.shape[-1], l, generator, A)
-                         for _ in range(math.prod(A.shape[:-2]))])
+        O = torch.stack(draw_rows(
+            generator, math.prod(A.shape[:-2]),
+            lambda _: _gaussian_sketch(A.shape[-1], l, generator, A)))
         O = O.reshape(*A.shape[:-2], A.shape[-1], l)
     Q = orthonormalize(A @ O)
     for _ in range(q):

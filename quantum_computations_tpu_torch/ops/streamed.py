@@ -44,6 +44,7 @@ import torch
 
 from ..config import full_fp32_matmul, to_device
 from ..utils.profiling import span
+from ..utils.rng import draw_rows
 from .interp import affine_warp, fourier
 from .linalg import OVERSAMPLE, orthonormalize
 
@@ -322,11 +323,24 @@ def streamed_pair_svd_batched(t1: torch.Tensor, t2: torch.Tensor, qs: torch.Tens
     the common cap min(max_bond_dim, a d, d b), each trajectory's truncated
     directions zero-masked, and the kept ranks as a host int array (B,).
     The trajectories split one after another (one Gram fetch each),
-    drawing their sketches from ``generator`` in order.
+    drawing their sketches from ``generator`` in order
+    (:func:`..utils.rng.draw_rows`).
     """
     kw = dict(max_bond_dim=max_bond_dim, abs_err=abs_err, rel_err=rel_err,
               generator=generator, power_iters=power_iters)
-    out = [streamed_pair_svd(t1[z], t2[z], qs, warp_params, **kw)
-           for z in range(t1.shape[0])]
+    # every split of a trajectory draws a (d, b, l) sketch: one split, or
+    # three along the three-CZ route of a rotation
+    _, a, d, _ = t1.shape
+    b = t2.shape[-1]
+    l = min(min(max_bond_dim, a * d, d * b) + OVERSAMPLE, a * d, d * b)
+    splits = 3 if _BS_DECOMP == "cz" and warp_params[0] == "rot" else 1
+
+    def skip():
+        for _ in range(splits):
+            _stream_sketch(d, b, l, generator, t1)
+
+    out = draw_rows(generator, t1.shape[0],
+                    lambda z: streamed_pair_svd(t1[z], t2[z], qs, warp_params, **kw),
+                    skip)
     return (torch.stack([o[0] for o in out]), torch.stack([o[1] for o in out]),
             np.asarray([o[2] for o in out], dtype=np.int64))

@@ -630,6 +630,8 @@ def test_port_imports_no_jax():
             "import quantum_computations_tpu_torch.distill.physical\n"
             "import quantum_computations_tpu_torch.distill.rates\n"
             "import quantum_computations_tpu_torch.distill.search\n"
+            "import quantum_computations_tpu_torch.parallel\n"
+            "import quantum_computations_tpu_torch.parallel.shardmap_sv\n"
             "new = set(sys.modules) - before\n"
             "bad = sorted(m for m in new if m.split('.')[0] in "
             "('jax', 'jaxlib', 'quantum_computations_tpu'))\n"
