@@ -1,0 +1,1 @@
+"""Closed-loop clients, one module per kind, named by a traffic file's "driver"."""
