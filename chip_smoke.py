@@ -2195,34 +2195,29 @@ def count_sync_total(fn) -> int:
 def measure_threads(fn, traced: bool) -> dict:
     """``fn()`` (which returns its rows, one per trajectory) run once,
     timed, with its host syncs counted and the engines' host spans summed
-    over threads (``utils.profiling.WallClock``); if ``traced``, under a
+    over threads (``utils.profiling.recording``); if ``traced``, under a
     CUDA-only ``torch.profiler`` trace (every stream; the profiler
     records no CPU span of threads it was not started in). The busy
     window runs from a one-element fill launched on the idle card just
     before ``fn`` to another launched after it has drained; the busy time
     is the union of all device intervals inside it, read from the
     profiler's events without a trace file."""
-    from quantum_computations_tpu_torch.utils.profiling import WallClock
+    from quantum_computations_tpu_torch.utils import profiling
     marker = torch.zeros(1, device="cuda")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    WallClock.reset()
-    WallClock.enable()
     out = {}
     prof = (torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA])
             if traced else contextlib.nullcontext())
-    try:
-        with prof:
-            marker.fill_(1.0)
-            t = time.perf_counter()
-            syncs = count_sync_total(lambda: out.update(result=fn()))
-            torch.cuda.synchronize()
-            seconds = time.perf_counter() - t
-            marker.fill_(2.0)
-            torch.cuda.synchronize()
-    finally:
-        WallClock.enable(False)
-    spans = WallClock.table()
+    with profiling.recording(), prof:
+        marker.fill_(1.0)
+        t = time.perf_counter()
+        syncs = count_sync_total(lambda: out.update(result=fn()))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t
+        marker.fill_(2.0)
+        torch.cuda.synchronize()
+    spans = profiling.table()
     peak = torch.cuda.max_memory_allocated() / 2**30
     trajectories = len(out["result"])
     result = {"result": out["result"], "seconds": seconds, "trajectories": trajectories,

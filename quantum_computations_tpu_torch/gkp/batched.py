@@ -440,35 +440,36 @@ class BatchedGKP:
         the returned tensors are that slice, the frames are gathered on
         every rank, and each trajectory equals the serial run's.
         """
-        N = circuit._N
-        self._shard = None
-        if data_sharding is None:
-            rows, self._generator = batch, as_generator(rng_seed)
-        else:
-            mesh = data_sharding
-            D = mesh.size
-            if batch < D:
-                raise ValueError(f"a batch of {batch} over {D} ranks")
-            if not isinstance(rng_seed, (int, np.integer)):
-                raise ValueError("a data-sharded run takes an integer rng_seed")
-            counts = [batch // D + (r < batch % D) for r in range(D)]
-            lo = sum(counts[:mesh.rank])
-            rows = counts[mesh.rank]
-            self._shard = (mesh, counts)
-            self._generator = BatchShard(rng_seed, batch, lo, lo + rows)
-        tensors = self.init_tensors(np.asarray(coeffs, np.float32), rows)
-        # product initial state: every bond has capacity (and rank) 1
-        self._ranks = [1] * (N - 1) if self._tracking_active else None
-        try:
-            tensors, frame = self._run_layers(circuit, tensors, rows)
-        finally:
-            self._ranks = None  # circuit-scoped; do not leak across calls
-            self._generator = None
-        if self._shard is not None:
-            mesh, counts = self._shard
-            frame = mesh.gather_rows(torch.from_numpy(frame).to(mesh.device),
-                                     counts).cpu().numpy()
-        return tensors, frame
+        with span("run_circuit"):
+            N = circuit._N
+            self._shard = None
+            if data_sharding is None:
+                rows, self._generator = batch, as_generator(rng_seed)
+            else:
+                mesh = data_sharding
+                D = mesh.size
+                if batch < D:
+                    raise ValueError(f"a batch of {batch} over {D} ranks")
+                if not isinstance(rng_seed, (int, np.integer)):
+                    raise ValueError("a data-sharded run takes an integer rng_seed")
+                counts = [batch // D + (r < batch % D) for r in range(D)]
+                lo = sum(counts[:mesh.rank])
+                rows = counts[mesh.rank]
+                self._shard = (mesh, counts)
+                self._generator = BatchShard(rng_seed, batch, lo, lo + rows)
+            tensors = self.init_tensors(np.asarray(coeffs, np.float32), rows)
+            # product initial state: every bond has capacity (and rank) 1
+            self._ranks = [1] * (N - 1) if self._tracking_active else None
+            try:
+                tensors, frame = self._run_layers(circuit, tensors, rows)
+            finally:
+                self._ranks = None  # circuit-scoped; do not leak across calls
+                self._generator = None
+            if self._shard is not None:
+                mesh, counts = self._shard
+                frame = mesh.gather_rows(torch.from_numpy(frame).to(mesh.device),
+                                         counts).cpu().numpy()
+            return tensors, frame
 
     def _run_layers(self, circuit, tensors, batch):
         N = circuit._N

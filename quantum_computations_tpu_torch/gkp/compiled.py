@@ -40,6 +40,7 @@ from ..ops.fused_gadget import _at, _draw, _grid, _left_env, _right_env
 from ..ops.linalg import tensor_svd
 from ..ops.streamed import effective_power_iters, streamed_pair_svd_batched
 from ..utils import as_generator
+from ..utils.profiling import span
 from .bell import splice_product_segment
 from .gates import MB2Type
 from .transpiler import MBGKPCircuit
@@ -146,12 +147,15 @@ def _bs_split(tensors, i: int, j: int, opts: SVDOptions, generator, qs):
     per = max(1, cvg._STREAM_THRESHOLD // (a * d * d * b))
     parts = []
     for z0 in range(0, t1.shape[0], per):
-        res = torch.einsum("zaik,zkjb->zaijb", t1[z0:z0 + per], t2[z0:z0 + per])
-        res = interp.affine_warp(q, res, ("rot", angle), axis_x=2, axis_y=3)
-        parts.append(tensor_svd(
-            res, (0, 1), (2, 3), max_bond_dim=opts.max_bond_dim,
-            abs_err=opts.abs_err, rel_err=opts.rel_err, generator=generator,
-            svd_method=opts.svd_method, batch_dims=1)[:2])
+        with span("bs:contract"):
+            res = torch.einsum("zaik,zkjb->zaijb", t1[z0:z0 + per], t2[z0:z0 + per])
+        with span("bs:warp"):
+            res = interp.affine_warp(q, res, ("rot", angle), axis_x=2, axis_y=3)
+        with span("bs:svd"):
+            parts.append(tensor_svd(
+                res, (0, 1), (2, 3), max_bond_dim=opts.max_bond_dim,
+                abs_err=opts.abs_err, rel_err=opts.rel_err, generator=generator,
+                svd_method=opts.svd_method, batch_dims=1)[:2])
         del res
     out[li], out[ri] = (torch.cat(f) if len(f) > 1 else f[0] for f in zip(*parts))
     return out, None

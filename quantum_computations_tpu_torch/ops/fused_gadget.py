@@ -44,6 +44,7 @@ import numpy as np
 import torch
 
 from ..config import full_fp32_matmul, to_device
+from ..utils.profiling import span
 from ..utils.rng import draw_batch
 from .interp import rotation
 from .linalg import _ns_inv_sqrt
@@ -254,91 +255,96 @@ def fused_single_gadget(tensors, idx: int, qs, bell, a1, a2,
     a1 = float(a1)
     bell = bell.to(dev, cdt).expand(B, d, 2)
 
-    b1 = bell
-    if a1 != 0.0:
-        t1 = rotation(q, t1, -a1, axis=2)
-        b1 = rotation(q, b1, -a1, axis=1)
+    with span("fused:envs"):
+        b1 = bell
+        if a1 != 0.0:
+            t1 = rotation(q, t1, -a1, axis=2)
+            b1 = rotation(q, b1, -a1, axis=1)
 
-    # Environments and their Hermitian PSD square roots (matmul-only), in
-    # complex128.
-    S_L = _psd_sqrt(_left_env(tensors[:idx], t1)).to(cdt)                # (B, a, a)
-    S_E = _psd_sqrt(_right_env(tensors[idx + 1:], t1)).to(cdt)           # (B, k, k)
-    b128 = bell.to(torch.complex128)
-    S_G = _psd_sqrt(torch.einsum("zys,zyt->zst", b128, b128.conj())).to(cdt)  # (B, 2, 2)
+        # Environments and their Hermitian PSD square roots (matmul-only), in
+        # complex128.
+        S_L = _psd_sqrt(_left_env(tensors[:idx], t1)).to(cdt)                # (B, a, a)
+        S_E = _psd_sqrt(_right_env(tensors[idx + 1:], t1)).to(cdt)           # (B, k, k)
+        b128 = bell.to(torch.complex128)
+        S_G = _psd_sqrt(torch.einsum("zys,zyt->zst", b128, b128.conj())).to(cdt)  # (B, 2, 2)
 
-    # Dressed line families: G from the input factor, H from the Bell factor.
-    t1e = torch.einsum("zpa,zaik,zkg->zipg", S_L.conj(), t1, S_E).reshape(B, d, a * k)
-    b1d = b1 @ S_G                                             # (B, d, 2)
+    with span("fused:first"):
+        # Dressed line families: G from the input factor, H from the Bell factor.
+        t1e = torch.einsum("zpa,zaik,zkg->zipg", S_L.conj(), t1, S_E).reshape(B, d, a * k)
+        b1d = b1 @ S_G                                             # (B, d, 2)
 
-    # Padding absorbs the largest Fourier shift, so wraps touch only zeros.
-    pad = int(np.ceil(max(cth / sth, sth / cth) * (d - 1) / 2)) + 1
-    S2G, MG, hG = _stretch_sample_matrix(qs_np, sth, 2, pad, dev)
-    S2H, MH, hH = _stretch_sample_matrix(qs_np, cth, 2, pad, dev)
+        # Padding absorbs the largest Fourier shift, so wraps touch only zeros.
+        pad = int(np.ceil(max(cth / sth, sth / cth) * (d - 1) / 2)) + 1
+        S2G, MG, hG = _stretch_sample_matrix(qs_np, sth, 2, pad, dev)
+        S2H, MH, hH = _stretch_sample_matrix(qs_np, cth, 2, pad, dev)
 
-    # G(x) = sum over dressed lines of |line(x)|^2 on the half-spacing grid
-    # (|f|^2 has twice f's bandwidth).
-    G = torch.zeros((B, MG), dtype=rdt, device=dev)
-    for c0 in range(0, a * k, line_chunk):
-        u = _real_matmul(S2G, t1e[:, :, c0:c0 + line_chunk])
-        G += torch.sum(u.real ** 2 + u.imag ** 2, -1)
-    uh = _real_matmul(S2H, b1d)
-    H = torch.sum(uh.real ** 2 + uh.imag ** 2, -1)
+        # G(x) = sum over dressed lines of |line(x)|^2 on the half-spacing grid
+        # (|f|^2 has twice f's bandwidth).
+        G = torch.zeros((B, MG), dtype=rdt, device=dev)
+        for c0 in range(0, a * k, line_chunk):
+            u = _real_matmul(S2G, t1e[:, :, c0:c0 + line_chunk])
+            G += torch.sum(u.real ** 2 + u.imag ** 2, -1)
+        uh = _real_matmul(S2H, b1d)
+        H = torch.sum(uh.real ** 2 + uh.imag ** 2, -1)
 
-    # p1(i) = dq^(L+1) sum_j G(c q_i + s q_j) H(-s q_i + c q_j): Fourier-shift
-    # G by c q_i (and H by -s q_i) and read the strided core, rows in chunks.
-    Gf = torch.fft.fft(G.to(cdt), dim=-1)
-    Hf = torch.fft.fft(H.to(cdt), dim=-1)
-    freqsG = torch.fft.fftfreq(MG, d=hG, dtype=torch.float64, device=dev)
-    freqsH = torch.fft.fftfreq(MH, d=hH, dtype=torch.float64, device=dev)
-    p1_raw = torch.empty((B, d), dtype=rdt, device=dev)
-    ic = _chunk_rows(d, B * max(MG, MH))
-    for r0 in range(0, d, ic):
-        qi = q[r0:r0 + ic]
-        Grow = _core_slice(_shift_eval(Gf, freqsG, cth * qi).real, 2, pad, d)
-        Hrow = _core_slice(_shift_eval(Hf, freqsH, -sth * qi).real, 2, pad, d)
-        p1_raw[:, r0:r0 + ic] = torch.sum(Grow * Hrow, -1)
-    rho1 = torch.clamp(p1_raw, min=0.0) * dq ** (L0 + 1)
-    i_star = _draw(rho1 * dq, None if force is None else force[0], generator)
-    m1 = q[i_star]
-    p1v = _at(rho1, i_star)
+        # p1(i) = dq^(L+1) sum_j G(c q_i + s q_j) H(-s q_i + c q_j): Fourier-shift
+        # G by c q_i (and H by -s q_i) and read the strided core, rows in chunks.
+        Gf = torch.fft.fft(G.to(cdt), dim=-1)
+        Hf = torch.fft.fft(H.to(cdt), dim=-1)
+        freqsG = torch.fft.fftfreq(MG, d=hG, dtype=torch.float64, device=dev)
+        freqsH = torch.fft.fftfreq(MH, d=hH, dtype=torch.float64, device=dev)
+        p1_raw = torch.empty((B, d), dtype=rdt, device=dev)
+        ic = _chunk_rows(d, B * max(MG, MH))
+        for r0 in range(0, d, ic):
+            qi = q[r0:r0 + ic]
+            Grow = _core_slice(_shift_eval(Gf, freqsG, cth * qi).real, 2, pad, d)
+            Hrow = _core_slice(_shift_eval(Hf, freqsH, -sth * qi).real, 2, pad, d)
+            p1_raw[:, r0:r0 + ic] = torch.sum(Grow * Hrow, -1)
+        rho1 = torch.clamp(p1_raw, min=0.0) * dq ** (L0 + 1)
+        with span("fused:draw"):
+            i_star = _draw(rho1 * dq, None if force is None else force[0], generator)
+        m1 = q[i_star]
+        p1v = _at(rho1, i_star)
 
-    # Collapse: raw (undressed) line evaluation at the sampled row.
-    S1G, M1G, h1G = _stretch_sample_matrix(qs_np, sth, 1, pad, dev)
-    S1H, M1H, h1H = _stretch_sample_matrix(qs_np, cth, 1, pad, dev)
-    f1G = torch.fft.fftfreq(M1G, d=h1G, dtype=torch.float64, device=dev)
-    f1H = torch.fft.fftfreq(M1H, d=h1H, dtype=torch.float64, device=dev)
-    t1_lines = t1.permute(0, 2, 1, 3).reshape(B, d, a * k)
-    u_f = torch.fft.fft(_real_matmul(S1G, t1_lines), dim=1)   # (B, M1G, a k)
-    shifted = torch.fft.ifft(u_f * _phase(f1G, cth * m1, cdt)[:, :, None], dim=1)
-    B1 = shifted[:, pad:pad + d].reshape(B, d, a, k).permute(0, 2, 1, 3)
-    ub_f = torch.fft.fft(_real_matmul(S1H, b1), dim=1)        # (B, M1H, 2)
-    ub_s = torch.fft.ifft(ub_f * _phase(f1H, -sth * m1, cdt)[:, :, None], dim=1)
-    brow = ub_s[:, pad:pad + d]                                # (B, d, 2)
+        # Collapse: raw (undressed) line evaluation at the sampled row.
+        S1G, M1G, h1G = _stretch_sample_matrix(qs_np, sth, 1, pad, dev)
+        S1H, M1H, h1H = _stretch_sample_matrix(qs_np, cth, 1, pad, dev)
+        f1G = torch.fft.fftfreq(M1G, d=h1G, dtype=torch.float64, device=dev)
+        f1H = torch.fft.fftfreq(M1H, d=h1H, dtype=torch.float64, device=dev)
+        t1_lines = t1.permute(0, 2, 1, 3).reshape(B, d, a * k)
+        u_f = torch.fft.fft(_real_matmul(S1G, t1_lines), dim=1)   # (B, M1G, a k)
+        shifted = torch.fft.ifft(u_f * _phase(f1G, cth * m1, cdt)[:, :, None], dim=1)
+        B1 = shifted[:, pad:pad + d].reshape(B, d, a, k).permute(0, 2, 1, 3)
+        ub_f = torch.fft.fft(_real_matmul(S1H, b1), dim=1)        # (B, M1H, 2)
+        ub_s = torch.fft.ifft(ub_f * _phase(f1H, -sth * m1, cdt)[:, :, None], dim=1)
+        brow = ub_s[:, pad:pad + d]                                # (B, d, 2)
 
-    scale = torch.rsqrt(torch.clamp(p1v, min=tiny)).to(cdt)[:, None, None, None, None]
-    Bt = (B1[..., None] * brow[:, None, :, None, :] * scale).reshape(B, a, d, 2 * k)
+        scale = torch.rsqrt(torch.clamp(p1v, min=tiny)).to(cdt)[:, None, None, None, None]
+        Bt = (B1[..., None] * brow[:, None, :, None, :] * scale).reshape(B, a, d, 2 * k)
 
-    # Second homodyne: the commuted trailing R2(+a1) and the measurement
-    # pre-rotation R2(-a2) compose to one rotation by (a1 - a2). One angle
-    # per trajectory is always applied, as the JAX package applies a traced
-    # angle.
-    if _per_trajectory(a2):
-        Bt = rotation(q, Bt, a1 - _angles(a2), axis=2)
-    elif abs(a1 - float(a2)) >= 1e-12:
-        Bt = rotation(q, Bt, a1 - float(a2), axis=2)
+    with span("fused:second"):
+        # Second homodyne: the commuted trailing R2(+a1) and the measurement
+        # pre-rotation R2(-a2) compose to one rotation by (a1 - a2). One angle
+        # per trajectory is always applied, as the JAX package applies a traced
+        # angle.
+        if _per_trajectory(a2):
+            Bt = rotation(q, Bt, a1 - _angles(a2), axis=2)
+        elif abs(a1 - float(a2)) >= 1e-12:
+            Bt = rotation(q, Bt, a1 - float(a2), axis=2)
 
-    Bd = torch.einsum("zpa,zajc->zpjc", S_L.conj(), Bt)
-    Bd = torch.einsum("zpjks,zkg,zst->zpjgt", Bd.reshape(B, -1, d, k, 2), S_E, S_G)
-    rho2 = torch.clamp(torch.sum(Bd.real ** 2 + Bd.imag ** 2, (1, 3, 4)), min=0.0) * dq ** L0
-    j_star = _draw(rho2 * dq, None if force is None else force[1], generator)
-    m2 = q[j_star]
-    p2v = _at(rho2, j_star)
+        Bd = torch.einsum("zpa,zajc->zpjc", S_L.conj(), Bt)
+        Bd = torch.einsum("zpjks,zkg,zst->zpjgt", Bd.reshape(B, -1, d, k, 2), S_E, S_G)
+        rho2 = torch.clamp(torch.sum(Bd.real ** 2 + Bd.imag ** 2, (1, 3, 4)), min=0.0) * dq ** L0
+        with span("fused:draw"):
+            j_star = _draw(rho2 * dq, None if force is None else force[1], generator)
+        m2 = q[j_star]
+        p2v = _at(rho2, j_star)
 
-    Mj = torch.take_along_dim(Bt, j_star[:, None, None, None], 2)[:, :, 0]  # (B, a, 2k)
-    Mj = Mj * torch.rsqrt(torch.clamp(p2v, min=tiny)).to(cdt)[:, None, None]
-    # Exact contraction with the second Bell tensor:
-    # out[a, x, k] = sum_s M[a, (k, s)] bell[x, s].
-    out = torch.einsum("zaks,zxs->zaxk", Mj.reshape(B, a, k, 2), bell)
+        Mj = torch.take_along_dim(Bt, j_star[:, None, None, None], 2)[:, :, 0]  # (B, a, 2k)
+        Mj = Mj * torch.rsqrt(torch.clamp(p2v, min=tiny)).to(cdt)[:, None, None]
+        # Exact contraction with the second Bell tensor:
+        # out[a, x, k] = sum_s M[a, (k, s)] bell[x, s].
+        out = torch.einsum("zaks,zxs->zaxk", Mj.reshape(B, a, k, 2), bell)
 
     new_tensors = list(tensors)
     new_tensors[idx] = out

@@ -31,6 +31,7 @@ import math
 import torch
 
 from ..config import full_fp32_matmul, to_device
+from ..utils.profiling import span
 from ..utils.rng import draw_rows
 
 # Fixed oversampling for the randomized SVD.
@@ -60,7 +61,8 @@ def svd_gram(A: torch.Tensor):
     G.diagonal(dim1=-2, dim2=-1).add_(
         torch.arange(n, dtype=torch.float64, device=G.device)
         * (1e-15 * _trace(G).real / n**2)[..., None])
-    w, V = torch.linalg.eigh(G)  # ascending
+    with span("linalg:eigh"):
+        w, V = torch.linalg.eigh(G)  # ascending
     w, V = w.flip(-1), V.flip(-1)
     s = torch.sqrt(torch.clamp(w, min=0.0))
     U = (A64 @ V) / torch.where(s > 0, s, torch.ones_like(s))[..., None, :]
@@ -107,7 +109,9 @@ def _hermitian_inv_sqrt(G: torch.Tensor, eps_rel: float = 1e-12) -> torch.Tensor
     """G^{-1/2} for a small Hermitian PSD matrix by ``torch.linalg.eigh`` in
     float64 (complex eigh directly; the JAX package realifies for its TPU).
     Eigenvalues at or below ``max(w) * eps_rel`` are dropped."""
-    w, V = torch.linalg.eigh(G.to(torch.complex128 if G.is_complex() else torch.float64))
+    G64 = G.to(torch.complex128 if G.is_complex() else torch.float64)
+    with span("linalg:eigh"):
+        w, V = torch.linalg.eigh(G64)
     floor = w.amax(-1, keepdim=True) * eps_rel
     inv_sqrt_w = torch.where(w > floor, torch.maximum(w, floor).rsqrt(),
                              torch.zeros_like(w))
@@ -175,15 +179,16 @@ def randomized_range_finder(A: torch.Tensor, l: int, q: int,
     iterations. ``sketch`` (an (A.shape[-1], l) real array, per matrix of
     a batch) replaces the draw from ``generator``; a batch draws one
     sketch per matrix, in order (:func:`..utils.rng.draw_rows`)."""
-    if sketch is not None:
-        O = torch.as_tensor(sketch).to(device=A.device, dtype=A.dtype)
-    elif A.ndim == 2:
-        O = _gaussian_sketch(A.shape[1], l, generator, A)
-    else:
-        O = torch.stack(draw_rows(
-            generator, math.prod(A.shape[:-2]),
-            lambda _: _gaussian_sketch(A.shape[-1], l, generator, A)))
-        O = O.reshape(*A.shape[:-2], A.shape[-1], l)
+    with span("linalg:sketch"):
+        if sketch is not None:
+            O = torch.as_tensor(sketch).to(device=A.device, dtype=A.dtype)
+        elif A.ndim == 2:
+            O = _gaussian_sketch(A.shape[1], l, generator, A)
+        else:
+            O = torch.stack(draw_rows(
+                generator, math.prod(A.shape[:-2]),
+                lambda _: _gaussian_sketch(A.shape[-1], l, generator, A)))
+            O = O.reshape(*A.shape[:-2], A.shape[-1], l)
     Q = orthonormalize(A @ O)
     for _ in range(q):
         Q1 = orthonormalize(A.mH @ Q)

@@ -73,6 +73,12 @@ def run_engines(work, runners, errors: list) -> None:
         except Exception as exc:  # raised in the caller's thread after join
             errors.append(exc)
 
+    cuda = [r.device for r in runners if r.device.type == "cuda"]
+    if cuda:
+        # torch loads its CUDA linear-algebra library lazily, and the loader
+        # fails ("lazy wrapper should be called at most once") when several
+        # threads make their first calls together: load it from this thread
+        torch.linalg.eigh(torch.eye(2, dtype=torch.complex128, device=cuda[0]))
     threads = [threading.Thread(target=body, args=(r,), name=f"engine-{i}")
                for i, r in enumerate(runners)]
     for t in threads:

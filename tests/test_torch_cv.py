@@ -115,15 +115,13 @@ def test_as_generator_and_wallclock():
     assert torch.rand(3, generator=as_generator(5)).tolist() == \
         torch.rand(3, generator=torch.Generator().manual_seed(5)).tolist()
     assert isinstance(as_generator(None), torch.Generator)
-    profiling.WallClock.reset()
-    profiling.WallClock.enable()
-    try:
+    with profiling.recording():
         with profiling.span("a"):
             pass
-        assert profiling.WallClock.table()["a"]["calls"] == 1
-    finally:
-        profiling.WallClock.enable(False)
-        profiling.WallClock.reset()
+    assert profiling.table()["a"]["calls"] == 1
+    with profiling.span("a"):   # outside a recording: not kept
+        pass
+    assert profiling.table()["a"]["calls"] == 1
 
 
 def test_format_time_matches_jax():
