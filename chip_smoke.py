@@ -89,6 +89,17 @@ workload at 1, 2 and 4 ranks and 10a's Grover cell at 1 and 4, every row
 against the serial rows of the same seed. Each world's time, peak memory
 per rank, host syncs and exchange times are printed.
 
+Then the Hermitian eigensolver of the randomized split's Gram matrices
+(phase 13), ``ops.herm_eigh_small``: built, held against its plain version
+and ``torch.linalg.eigh`` on random Hermitian and rank-deficient graded PSD
+batches of sides 1 to 128, then timed at the split's shapes (B, 110), B =
+16, 10, 8 and 1, beside its bound, the plain version and the library call,
+then against the library per call at B = 1 to 8 and sides 26 to 128 (the
+crossover below which ``ops/linalg.py`` keeps cuSOLVER) and in RB batches
+of 1 to 4 trajectories with either route forced (phase 9b checks its
+launches: 16 per randomized split pass the kernel takes);
+``python -c 'import chip_smoke as c; c.eigh_small_main()'`` runs it alone.
+
 Prints one line per phase with its wall time, JSON lines of the paths'
 numbers, then the card's name and power limit, a JSON line of per-kernel
 numbers, and as its last line ``{"ok": true, "device": {...}}``. Any
@@ -117,6 +128,7 @@ import torch
 # H100 SXM data-sheet peaks (FP32 outside the tensor cores, dense TF32 on
 # them; HBM3)
 PEAK_FP32_FLOPS = 67e12
+PEAK_FP64_FLOPS = 67e12  # FP64 on the tensor cores (data sheet)
 PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES_PER_S = 3.35e12
 
@@ -1334,6 +1346,24 @@ def rb_run(runner, gkp_circ, batch=RB_BATCH, seed=RB_SEED, coeffs=None):
 
 
 @contextlib.contextmanager
+def randomized_passes():
+    """Inside the block, the list yielded gets (trajectories, Gram side)
+    of every randomized split pass (``linalg.randomized_truncated_svd``
+    call)."""
+    from quantum_computations_tpu_torch.ops import linalg
+    passes = []
+    rsvd = linalg.randomized_truncated_svd
+
+    def counted(A, k, *args, **kwargs):
+        passes.append((int(np.prod(A.shape[:-2])),
+                       min(k + linalg.OVERSAMPLE, *A.shape[-2:])))
+        return rsvd(A, k, *args, **kwargs)
+
+    with patched(linalg, "randomized_truncated_svd", counted):
+        yield passes
+
+
+@contextlib.contextmanager
 def largest_inputs():
     """Inside the block the inputs of the largest fused single gadget and
     of the largest fused pair measure (by bond product) that the engine
@@ -1596,6 +1626,7 @@ def streamed_routes(kept_split) -> dict:
 
 def rb_path() -> dict:
     """Phase 9: bench.py's workload through BatchedGKP on the card."""
+    from quantum_computations_tpu_torch.ops import herm_eigh_small as hs, linalg
     from quantum_computations_tpu_torch.pipelines.rb_batched import _dv_state_np, _score_batch
     from quantum_computations_tpu_torch.utils import maybe_trace
     dv_circ, gkp_circ, runner = rb_workload()
@@ -1614,12 +1645,23 @@ def rb_path() -> dict:
         runner.largest.clear()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        t = time.perf_counter()
-        _, frames, rho = rb_run(runner, gkp_circ)
-        torch.cuda.synchronize()
-        seconds = time.perf_counter() - t
+        hs.herm_eigh_small.launches = 0
+        with randomized_passes() as passes:
+            t = time.perf_counter()
+            _, frames, rho = rb_run(runner, gkp_circ)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t
+        eigh_launches = hs.herm_eigh_small.launches
         peak = torch.cuda.max_memory_allocated() / 2**30
         counts, largest = dict(runner.counts), dict(runner.largest)
+        on_kernel = sum(b >= linalg.KERNEL_MIN_BATCH
+                        and linalg.KERNEL_MIN_SIDE <= n <= hs.MAX_N for b, n in passes)
+        log(f"9b herm_eigh_small launches {eigh_launches} for {len(passes)} randomized "
+            f"split passes of (trajectories, Gram side) {sorted(set(passes))}, {on_kernel} "
+            f"of them on the kernel")
+        if eigh_launches != 16 * on_kernel or not on_kernel:
+            raise AssertionError(f"9b: {eigh_launches} herm_eigh_small launches, not 16 x "
+                                 f"{on_kernel} randomized passes")
         syncs = count_syncs(lambda: rb_run(runner, gkp_circ))
         with maybe_trace(RB_TRACE_DIR):
             rb_run(runner, gkp_circ)
@@ -1636,6 +1678,7 @@ def rb_path() -> dict:
             "device_busy_share": trace["device_busy_share"],
             "traced_window_ms": trace["window_ms"], "per_op": trace["per_class"],
             "counts": counts, "largest": largest,
+            "herm_eigh_small_launches": eigh_launches, "randomized_passes": passes,
             "trace_range": [float(traces.min()), float(traces.max())],
             "dropped": dropped, "mean_fidelity": mean, "fidelity_se": se,
             "tpu_reference_cell": RB_TPU_CELL})
@@ -2959,6 +3002,194 @@ def sharded_path() -> dict:
             for k, v in sorted(by_ranks.items())))
     return out
 
+# -- phase 13: the batched Hermitian eigensolver of the BS split's Grams ------
+EIGH_SHAPES = ((16, 110), (10, 110), (8, 110), (1, 110))  # the split's calls
+EIGH_CHECKS = ((1, 1), (3, 2), (2, 3), (10, 32), (16, 33), (1, 110),
+               (8, 110), (16, 110), (10, 127), (16, 128))
+EIGH_TOL = 1e-12  # eigenvalues, residual and V^H V, relative to ||G||
+# 13d: the kernel against torch.linalg.eigh per call at small batches, for
+# the crossover below which ops/linalg.py keeps cuSOLVER
+EIGH_CROSSOVER_SIDES = (26, 64, 110, 128)
+EIGH_CROSSOVER_BATCHES = (1, 2, 3, 4, 6, 8, 16)
+EIGH_LOW_BATCHES = (1, 2, 3, 4)  # 13e: RB batches with small split passes
+
+
+def eigh_inputs(kind: str, B: int, n: int, seed: int) -> torch.Tensor:
+    """A (B, n, n) complex128 Hermitian batch on the card: ``herm`` is a
+    complex Gaussian one; ``gram`` a PSD Gram whose spectrum falls from 1 to
+    1e-30, half of it zero, with ``svd_gram``'s diagonal ramp."""
+    g = torch.Generator().manual_seed(seed)
+    X = torch.randn(B, n, n, dtype=torch.complex128, generator=g)
+    if kind == "herm":
+        return ((X + X.mH) / 2).cuda()
+    Q, _ = torch.linalg.qr(X)
+    w = torch.logspace(0, -30, n, dtype=torch.float64)
+    w[(n + 1) // 2:] = 0
+    G = (Q * w.to(Q.dtype)) @ Q.mH
+    tr = G.diagonal(dim1=-2, dim2=-1).sum(-1).real
+    G.diagonal(dim1=-2, dim2=-1).add_(
+        torch.arange(n, dtype=torch.float64) * (1e-15 * tr / n**2)[:, None])
+    return G.cuda()
+
+
+def eigh_errors(G, w, V, w_ref) -> dict:
+    """Each check relative to max|w_ref| or ||G||_F, the worst of the batch."""
+    n = G.shape[-1]
+    scale = w_ref.abs().amax(-1).clamp_min(1e-300)
+    gnorm = torch.linalg.matrix_norm(G).clamp_min(1e-300)
+    eye = torch.eye(n, dtype=V.dtype, device=V.device)
+    return {
+        "eigenvalues": ((w - w_ref).abs().amax(-1) / scale).max().item(),
+        "residual": (torch.linalg.matrix_norm(G @ V - V * w[..., None, :])
+                     / gnorm).max().item(),
+        "orthonormality": (V.mH @ V - eye).abs().max().item(),
+        "ascending": bool((w[..., 1:] >= w[..., :-1]).all().item())}
+
+
+def eigh_small_phase(card: str, main_launches: int | None = None) -> dict:
+    """13: ``ops.herm_eigh_small`` built and held against its plain version
+    and ``torch.linalg.eigh`` on the card, then timed at the split's shapes
+    beside its bound, the plain version and the library call, and against
+    the library at small batches, per call and in RB batches of 1 to 4
+    trajectories; returns its row of the kernel table, with
+    ``main_launches`` (phase 9b's batch) as its launches."""
+    from quantum_computations_tpu_torch.ops import _build
+    from quantum_computations_tpu_torch.ops import herm_eigh_small as hs
+
+    with Phase("13a herm_eigh_small build"):
+        t = time.perf_counter()
+        out = _build.build(["herm_eigh_small"])["herm_eigh_small"]
+        log(f"built herm_eigh_small in {time.perf_counter() - t:.2f}s, cache hit: {out is None}")
+        for line in (out or "").splitlines():
+            if any(w in line for w in ("entry function", "registers", "spill", "smem")):
+                log(f"  ptxas: {line.strip()}")
+        _build.load("herm_eigh_small")
+    with Phase("13b herm_eigh_small vs plain and torch.linalg.eigh"):
+        checks = []
+        for kind in ("herm", "gram"):
+            for B, n in EIGH_CHECKS:
+                G = eigh_inputs(kind, B, n, seed=B * 1000 + n)
+                before = hs.herm_eigh_small.launches
+                w, V, info = hs.herm_eigh_small(G)
+                torch.cuda.synchronize()
+                if hs.herm_eigh_small.launches != before + 1:
+                    raise AssertionError("herm_eigh_small did not launch once")
+                w_ref = torch.linalg.eigh(G)[0]
+                errs = eigh_errors(G, w, V, w_ref)
+                wp, _, info_p = hs.herm_eigh_small_plain(G)
+                errs["vs_plain"] = ((w - wp).abs().amax(-1)
+                                    / w_ref.abs().amax(-1).clamp_min(1e-300)).max().item()
+                errs.update(kind=kind, B=B, n=n, sweeps=info.tolist(),
+                            sweeps_plain=info_p.tolist())
+                log(f"{kind} B={B} n={n}: sweeps {sorted(set(errs['sweeps']))} "
+                    f"(plain {sorted(set(errs['sweeps_plain']))}); eigenvalues "
+                    f"{errs['eigenvalues']:.2e}, residual {errs['residual']:.2e}, "
+                    f"V^H V - I {errs['orthonormality']:.2e}, vs plain {errs['vs_plain']:.2e}")
+                worst = max(errs[key] for key in ("eigenvalues", "residual", "orthonormality",
+                                                  "vs_plain"))
+                if not (worst <= EIGH_TOL and errs["ascending"]
+                        and min(errs["sweeps"]) >= 0):
+                    raise AssertionError(f"herm_eigh_small {kind} B={B} n={n}: {errs}")
+                checks.append(errs)
+        try:
+            hs.herm_eigh_small(torch.zeros(1, 129, 129, dtype=torch.complex128, device="cuda"))
+            raise AssertionError("n = 129 was taken")
+        except ValueError:
+            pass
+        err = hs._kernel()(0, 0, 0, 0, 1, 110, 7, 8, 40, 1e-15, 0)
+        if err == 0:
+            raise AssertionError("a launch with null pointers was not refused")
+        log(f"n = 129 raises; a launch with null pointers is refused (CUDA error {err})")
+    timings = {}
+    with Phase("13c herm_eigh_small at the split's shapes"):
+        for B, n in EIGH_SHAPES:
+            row = {}
+            for kind in ("gram", "herm"):
+                G = eigh_inputs(kind, B, n, seed=7 * B + n)
+                before = hs.herm_eigh_small.launches
+                ms = cuda_ms(lambda: hs.herm_eigh_small(G), 10)
+                launches = hs.herm_eigh_small.launches - before
+                if launches != 11:
+                    raise AssertionError(f"{launches} launches for 11 calls")
+                sweeps = hs.herm_eigh_small(G)[2]
+                lib_ms = cuda_ms(lambda: torch.linalg.eigh(G), 5)
+                t = time.perf_counter()
+                hs.herm_eigh_small_plain(G)
+                torch.cuda.synchronize()
+                plain_ms = (time.perf_counter() - t) * 1e3
+                bound_ms = 36 * n**3 * B / PEAK_FP64_FLOPS * 1e3
+                row[kind] = dict(ms=ms, library_ms=lib_ms, plain_ms=plain_ms,
+                                 bound_ms=bound_ms, launches_per_call=launches / 11,
+                                 sweeps=sorted(set(sweeps.tolist())),
+                                 library_over_kernel=lib_ms / ms)
+                log(f"herm_eigh_small B={B} n={n} {kind}: {ms:.3f} ms (sweeps "
+                    f"{row[kind]['sweeps']}); library (torch.linalg.eigh) {lib_ms:.3f} ms, "
+                    f"{lib_ms / ms:.2f}x the kernel's time; plain {plain_ms:.1f} ms; "
+                    f"bound {bound_ms:.4f} ms (36 n^3 FP64 operations a matrix)")
+            timings[f"{B}x{n}"] = row
+    crossover = {}
+    with Phase("13d herm_eigh_small against torch.linalg.eigh at small batches"):
+        for n in EIGH_CROSSOVER_SIDES:
+            rows = {}
+            for B in EIGH_CROSSOVER_BATCHES:
+                for kind in ("gram", "herm"):
+                    G = eigh_inputs(kind, B, n, seed=11 * B + n)
+                    ms = cuda_ms(lambda: hs.herm_eigh_small(G), 10)
+                    lib_ms = cuda_ms(lambda: torch.linalg.eigh(G), 10)
+                    rows[f"{B} {kind}"] = dict(ms=ms, library_ms=lib_ms)
+                log(f"herm_eigh_small n={n} B={B}: graded {rows[f'{B} gram']['ms']:.3f} ms "
+                    f"(library {rows[f'{B} gram']['library_ms']:.3f}), random "
+                    f"{rows[f'{B} herm']['ms']:.3f} ms (library "
+                    f"{rows[f'{B} herm']['library_ms']:.3f})")
+            wins = [B for B in EIGH_CROSSOVER_BATCHES
+                    if all(rows[f"{B} {kind}"]["ms"] < rows[f"{B} {kind}"]["library_ms"]
+                           for kind in ("gram", "herm"))]
+            crossover[n] = dict(rows=rows, kernel_faster_at=wins)
+            log(f"n={n}: the kernel is faster on both kinds at B in {wins}")
+    low = {}
+    with Phase("13e RB batches with small split passes, kernel against library"):
+        from quantum_computations_tpu_torch.ops import linalg
+        _, gkp_circ, runner = rb_workload()
+        for batch in EIGH_LOW_BATCHES:
+            for route, min_batch in (("kernel", 1), ("library", 10**9)):
+                with patched(linalg, "KERNEL_MIN_BATCH", min_batch):
+                    rb_run(runner, gkp_circ, batch=batch, seed=RB_SEED + 1)
+                    torch.cuda.synchronize()
+                    times = []
+                    for rep in range(2):
+                        t = time.perf_counter()
+                        rb_run(runner, gkp_circ, batch=batch, seed=RB_SEED + 2 + rep)
+                        torch.cuda.synchronize()
+                        times.append(time.perf_counter() - t)
+                low[f"{batch} {route}"] = times
+            log(f"RB batch {batch}: s per batch by the kernel {low[f'{batch} kernel']}, "
+                f"by torch.linalg.eigh {low[f'{batch} library']}")
+    print(json.dumps({"eigh_small": {"checks": checks, "timings": timings,
+                                     "crossover": crossover, "low_batch_rb": low},
+                      "card": card}), flush=True)
+    main_row = timings["16x110"]["gram"]
+    return {"name": "herm_eigh_small", "route": "cuda",
+            "source": "quantum_computations_tpu_torch/ops/csrc/herm_eigh_small.cu",
+            "replaces": "none (torch.linalg.eigh of the split's Grams)",
+            "launches": main_launches, "ms": main_row["ms"],
+            "plain_ms": main_row["plain_ms"], "bound_ms": main_row["bound_ms"],
+            "bound_by": "latency (operations bound given)",
+            "library_ms": main_row["library_ms"], "by_shape": timings}
+
+
+def eigh_small_main() -> int:
+    """Phase 13 alone: ``python -c 'import chip_smoke as c; c.eigh_small_main()'``."""
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, timeout=60,
+                          check=True).stdout.strip().splitlines()[0]
+    log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    row = eigh_small_phase(card)
+    print(json.dumps({"kernels": [row]}, default=str), flush=True)
+    return 0
+
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -3385,6 +3616,7 @@ def main() -> int:
     print(json.dumps({"ec_path": ec_result, "card": card}, default=float), flush=True)
     sharded_result = sharded_path()
     print(json.dumps({"sharded_path": sharded_result, "card": card}, default=float), flush=True)
+    kernels.append(eigh_small_phase(card, rb_result["herm_eigh_small_launches"]))
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

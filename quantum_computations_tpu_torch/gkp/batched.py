@@ -16,7 +16,12 @@ rank, which the host tracks (``track_ranks``) without a fetch of the whole
 chain. The host waits for the device once per gadget (the syndrome
 fetch), once per fused pair (its outcomes, with the absorbed bond's rank),
 once per materialised split's rank and once per streamed split's Gram per
-trajectory; a randomized split's range finder adds its eighs.
+trajectory; a full (unrandomized) CUDA split adds its Gram's cuSOLVER
+eigh, and so does a randomized split's pass of fewer than
+``ops.linalg.KERNEL_MIN_BATCH`` trajectories or with a bond cap under 23
+(a larger pass's Grams, of side 33 to 128, go to the one-launch
+``ops.herm_eigh_small`` kernel, which does not wait; the split's rank
+fetch checks that it converged).
 
 Differences from the JAX package, all deliberate: one eager program in
 place of cached jitted executors (no executor cache; the tests' witness
@@ -46,6 +51,7 @@ from ..cv import gates as cvg
 from ..dv import gates as dv_gates
 from ..dv.simulator import ClassicalControl
 from ..ops.fused_gadget import _grid, fused_pair_measure2, fused_single_gadget, pair_measure_path
+from ..ops.linalg import fetch
 from ..utils import as_generator
 from ..utils.profiling import span
 from ..utils.rng import BatchShard
@@ -330,7 +336,7 @@ class BatchedGKP:
             if self._shard is not None:
                 mesh = self._shard[0]
                 ranks = mesh.all_reduce(ranks.to(mesh.device), "max")
-            return ranks.cpu().numpy()
+            return fetch(ranks).numpy()
 
     @staticmethod
     def _trim_bucket(n: int) -> int:
@@ -384,7 +390,7 @@ class BatchedGKP:
         """Batch-max measured rank of bond ``j`` only (reads ONE tensor)."""
         self.counts["rank1_fetch"] += 1
         with span("op:rank1_fetch"):
-            return self._batch_max(max(1, int(_col_rank(tensors[j]))))
+            return self._batch_max(max(1, int(fetch(_col_rank(tensors[j])))))
 
     # ------------------------------------------------------------------
     def init_tensors(self, coeffs: np.ndarray, batch: int):

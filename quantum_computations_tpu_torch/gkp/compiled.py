@@ -20,9 +20,13 @@ syndromes, the classically controlled P angle and the T gadget's frame
 sign and Bell coefficient are device tensors; the readout returns the
 syndrome-corrected, raw (not trace-normalised) logical density as real and
 imaginary parts. The host waits only for the linear-algebra library:
-cuSOLVER's ``eigh`` in the randomized SVD's range finder and in the Gram
-SVD of a materialised split (a split above the stream threshold would add
-the streamed path's host eigh).
+cuSOLVER's ``eigh`` in the Gram SVD of a full materialised split whose
+smaller side is above 128, and of a randomized split of fewer than
+``ops.linalg.KERNEL_MIN_BATCH`` trajectories or with a bond cap under 23
+(a larger batch's Grams, of side 33 to 128, go to the one-launch
+``ops.herm_eigh_small`` kernel, which does not wait, and which marks a
+matrix it did not converge on with NaN; a split above the stream
+threshold would add the streamed path's host eigh).
 """
 
 from __future__ import annotations
@@ -37,7 +41,7 @@ from ..dv import gates as dv_gates
 from ..dv.simulator import ClassicalControl
 from ..ops import interp
 from ..ops.fused_gadget import _at, _draw, _grid, _left_env, _right_env
-from ..ops.linalg import tensor_svd
+from ..ops.linalg import fetch, tensor_svd
 from ..ops.streamed import effective_power_iters, streamed_pair_svd_batched
 from ..utils import as_generator
 from ..utils.profiling import span
@@ -268,7 +272,7 @@ def _single_gadget(tensors, idx: int, meas_angles, syn_angles, bell: torch.Tenso
     tensors, m_b = _homodyne(tensors, idx, meas_angles[1], generator, qs)
     if not host:
         return tensors, _syndrome_from_device(syn_angles[0], syn_angles[1], m_a, m_b)
-    ms = torch.stack([m_a, m_b], -1).cpu().numpy()
+    ms = fetch(torch.stack([m_a, m_b], -1)).numpy()
     return tensors, _syndrome_from(syn_angles[0], syn_angles[1], ms[:, 0], ms[:, 1])
 
 
@@ -291,7 +295,7 @@ def _two_mode_gadget(tensors, idx: int, mb2type: MB2Type, bell: torch.Tensor,
     tensors, m_d = _homodyne(tensors, idx + 1, td, generator, qs, static_zero=(td == 0.0))
     if not host:
         return tensors, _two_mode_syndromes_device(mb2type, (m_a, m_b, m_c, m_d))
-    ms = torch.stack([m_a, m_b, m_c, m_d]).cpu().numpy()
+    ms = fetch(torch.stack([m_a, m_b, m_c, m_d])).numpy()
     return tensors, _two_mode_syndromes(mb2type, ms)
 
 

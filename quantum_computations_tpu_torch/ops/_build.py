@@ -7,7 +7,9 @@ sources and flags, so a second process reuses it; a changed source builds
 anew. Sources are compiled in parallel, one ``nvcc`` each.
 
 There is no fallback: without ``nvcc`` a build raises, and so does a failed
-compile. Importing this module needs neither ``nvcc`` nor CUDA.
+compile. Importing this module needs neither ``nvcc`` nor CUDA. :func:`load`
+holds a lock, so engine threads that meet a kernel at once build and load
+it once.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -25,6 +28,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _loaded: dict[str, ctypes.CDLL] = {}
+_lock = threading.Lock()
 
 
 def find_nvcc() -> str:
@@ -86,9 +90,11 @@ def build(names) -> dict[str, str | None]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
-    lib = _loaded.get(name)
-    if lib is None:
-        build([name])
-        lib = _loaded[name] = ctypes.CDLL(str(library_path(name)))
-    return lib
+    """The loaded library of ``csrc/<name>.cu``, built first if needed; one
+    thread at a time (a build's temporary file is named by the process)."""
+    with _lock:
+        lib = _loaded.get(name)
+        if lib is None:
+            build([name])
+            lib = _loaded[name] = ctypes.CDLL(str(library_path(name)))
+        return lib

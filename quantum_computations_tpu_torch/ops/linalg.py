@@ -14,7 +14,15 @@ matrix.
 The thin SVD (:func:`svd_compat`) dispatches by device, as the JAX
 package's does: ``torch.linalg.svd`` (LAPACK) on the CPU, and on CUDA
 :func:`svd_gram`, the Hermitian eigendecomposition of the Gram matrix on
-the smaller side in float64 (``torch.linalg.eigh``). On an H100,
+the smaller side in float64. Every Gram eigendecomposition here goes
+through :func:`_eigh`: on CUDA, a batch of at least ``KERNEL_MIN_BATCH``
+Grams of side 33 to 128 (the range finder's and the randomized split's at
+the production bond cap) to the one-launch Jacobi kernel
+(:mod:`.herm_eigh_small`), which neither loops over the batch nor waits
+for the device (its convergence is checked at the engine's next
+:func:`fetch`); a smaller batch, a smaller or larger Gram and every CPU
+one to ``torch.linalg.eigh`` (cuSOLVER, one call per matrix above side 32
+and an info check that waits; LAPACK on the CPU). On an H100,
 cuSOLVER's complex64 SVD of a (10^5, 10^3) two-mode split kept its
 truncated part with a 2e-2 relative error against LAPACK's complex128 SVD
 (the float64 Gram route: 1.4e-7) and took 4.6 s (the Gram route: 46 ms);
@@ -27,15 +35,75 @@ here.
 from __future__ import annotations
 
 import math
+import threading
 
 import torch
 
 from ..config import full_fp32_matmul, to_device
 from ..utils.profiling import span
 from ..utils.rng import draw_rows
+from . import herm_eigh_small as _small
 
 # Fixed oversampling for the randomized SVD.
 OVERSAMPLE = 10
+
+
+# The Gram batches the kernel takes: sides KERNEL_MIN_SIDE..MAX_N, at least
+# KERNEL_MIN_BATCH matrices. Elsewhere cuSOLVER was the faster on an H100
+# (PERF.md's kernel table): at side <= 32 torch's route is itself one
+# batched Jacobi launch, and above it, below 3 matrices, its one call per
+# matrix beats the kernel, whose time is one matrix's ~10^3 dependent
+# sub-rounds whatever the batch.
+KERNEL_MIN_SIDE = 33
+KERNEL_MIN_BATCH = 3
+
+# Per thread: the least ``info`` of the kernel's launches since the host
+# last looked (a device scalar), or None; :func:`fetch` reads it.
+_unchecked = threading.local()
+
+
+def _eigh(G: torch.Tensor):
+    """(w ascending, V) of a Hermitian float64 or complex128 batch: on CUDA
+    at sides ``KERNEL_MIN_SIDE`` to ``herm_eigh_small.MAX_N`` and at least
+    ``KERNEL_MIN_BATCH`` matrices, one launch of the batched Jacobi kernel (span
+    ``linalg:eigh_small``: a launch, no wait), else ``torch.linalg.eigh``
+    (span ``linalg:eigh``: cuSOLVER's call and its info-check wait, or
+    LAPACK on the CPU).
+
+    A matrix the kernel did not converge on gets NaN in ``w`` and ``V``,
+    and the next :func:`fetch` on this thread raises, as cuSOLVER's info
+    check would have."""
+    n = G.shape[-1]
+    if (G.is_cuda and KERNEL_MIN_SIDE <= n <= _small.MAX_N
+            and G.numel() >= KERNEL_MIN_BATCH * n * n):
+        with span("linalg:eigh_small"):
+            w, V, info = _small.herm_eigh_small(G)
+            failed = (info < 0)[..., None]
+            w = w.masked_fill(failed, math.nan)
+            V = V.masked_fill(failed[..., None], math.nan)
+            least = getattr(_unchecked, "info", None)
+            info = info.amin()
+            _unchecked.info = (info if least is None
+                               else torch.minimum(least, info.to(least.device)))
+        return w, V
+    with span("linalg:eigh"):
+        return torch.linalg.eigh(G)
+
+
+def fetch(x: torch.Tensor) -> torch.Tensor:
+    """``x`` copied to the host. The same copy carries the least ``info``
+    of this thread's eigensolver kernel launches since the last fetch, and
+    raises ``torch.linalg.LinAlgError`` if one of them did not converge."""
+    least = getattr(_unchecked, "info", None)
+    if least is None or not x.is_cuda:
+        return x.cpu()
+    _unchecked.info = None
+    both = torch.cat([x.reshape(-1), least.to(x.device, x.dtype).reshape(1)]).cpu()
+    if both[-1] < 0:
+        raise torch.linalg.LinAlgError(
+            "herm_eigh_small: a Gram eigendecomposition did not converge "
+            f"within {_small.MAX_SWEEPS} sweeps or held a non-finite entry")
+    return both[:-1].reshape(x.shape)
 
 
 @full_fp32_matmul()
@@ -61,8 +129,7 @@ def svd_gram(A: torch.Tensor):
     G.diagonal(dim1=-2, dim2=-1).add_(
         torch.arange(n, dtype=torch.float64, device=G.device)
         * (1e-15 * _trace(G).real / n**2)[..., None])
-    with span("linalg:eigh"):
-        w, V = torch.linalg.eigh(G)  # ascending
+    w, V = _eigh(G)  # ascending
     w, V = w.flip(-1), V.flip(-1)
     s = torch.sqrt(torch.clamp(w, min=0.0))
     U = (A64 @ V) / torch.where(s > 0, s, torch.ones_like(s))[..., None, :]
@@ -94,10 +161,10 @@ def trim_split(m1: torch.Tensor, m2: torch.Tensor, rank):
     """Slice a zero-padded SVD split down to its (bucketed) true rank.
 
     Truncated directions are exact zeros, so slicing them away is lossless.
-    Reading ``rank`` on the host is one device sync. m1's LAST axis and
+    Reading ``rank`` on the host (:func:`fetch`) is one device sync. m1's LAST axis and
     m2's FIRST axis are the shared bond.
     """
-    r = bucket(max(1, int(rank)))
+    r = bucket(max(1, int(fetch(torch.as_tensor(rank)))))
     if r < m1.shape[-1]:
         m1 = m1[..., :r]
         m2 = m2[:r, ...]
@@ -106,12 +173,11 @@ def trim_split(m1: torch.Tensor, m2: torch.Tensor, rank):
 
 @full_fp32_matmul()
 def _hermitian_inv_sqrt(G: torch.Tensor, eps_rel: float = 1e-12) -> torch.Tensor:
-    """G^{-1/2} for a small Hermitian PSD matrix by ``torch.linalg.eigh`` in
+    """G^{-1/2} for a small Hermitian PSD matrix by :func:`_eigh` in
     float64 (complex eigh directly; the JAX package realifies for its TPU).
     Eigenvalues at or below ``max(w) * eps_rel`` are dropped."""
     G64 = G.to(torch.complex128 if G.is_complex() else torch.float64)
-    with span("linalg:eigh"):
-        w, V = torch.linalg.eigh(G64)
+    w, V = _eigh(G64)
     floor = w.amax(-1, keepdim=True) * eps_rel
     inv_sqrt_w = torch.where(w > floor, torch.maximum(w, floor).rsqrt(),
                              torch.zeros_like(w))

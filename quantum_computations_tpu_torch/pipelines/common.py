@@ -17,6 +17,8 @@ import threading
 
 import torch
 
+from ..ops import herm_eigh_small
+
 
 def write_data(path: str, data: list[dict]):
     """Whole-file JSON rewrite. ``default=float`` writes numpy scalars."""
@@ -77,8 +79,10 @@ def run_engines(work, runners, errors: list) -> None:
     if cuda:
         # torch loads its CUDA linear-algebra library lazily, and the loader
         # fails ("lazy wrapper should be called at most once") when several
-        # threads make their first calls together: load it from this thread
+        # threads make their first calls together: load it from this thread,
+        # and the split's eigensolver kernel with it
         torch.linalg.eigh(torch.eye(2, dtype=torch.complex128, device=cuda[0]))
+        herm_eigh_small.load()
     threads = [threading.Thread(target=body, args=(r,), name=f"engine-{i}")
                for i, r in enumerate(runners)]
     for t in threads:
