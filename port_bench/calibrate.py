@@ -43,15 +43,15 @@ def main(argv=None) -> int:
     import numpy as np
     import torch
 
-    from port_bench.harness import check as checking
-    from port_bench.harness.bench import OUT_DIR, Cell, log, seeds
-    from port_bench.harness.loop import make_engines, run_clients
-    from port_bench.harness.record import DrawRecorder
+    from port_bench.engines.gkp import check as checking
+    from port_bench.harness.bench import OUT_DIR, Cell, log, pick, seeds
+    from port_bench.harness.loop import run_clients
 
     cell = Cell(args.workload)
     config, traffic = cell.config, cell.traffic
     db = float(traffic["db"])
-    engines = make_engines(config, db, args.device, int(traffic.get("clients", 1)))
+    engines = cell.engine.make_engines(config, traffic, args.device,
+                                       int(traffic.get("clients", 1)))
     if args.draw_shift:
         from quantum_computations_tpu_torch.ops import fused_gadget
         real_draw = fused_gadget._draw
@@ -62,19 +62,19 @@ def main(argv=None) -> int:
         fused_gadget._draw = shifted
     OUT_DIR.mkdir(exist_ok=True)
     out_path = OUT_DIR / f"calibrate_{args.workload}.jsonl"
-    with DrawRecorder() as recorder, open(out_path, "a") as out:
+    with cell.engine.recorder() as recorder, open(out_path, "a") as out:
         for seed in (int(s) for s in args.seeds.split(",")):
             rng_traffic, _, rng_check = seeds(seed)
             next_job, score = cell.driver.make_client(config, traffic, rng_traffic)
             t = time.perf_counter()
-            batches = run_clients(engines, next_job, score, recorder,
+            batches = run_clients(engines, next_job, score, recorder, run_job=cell.engine.run_job,
                                   deadline=time.perf_counter() + args.seconds)
             window = time.perf_counter() - t
             row = {"workload": args.workload, "seed": seed, "draw_shift": args.draw_shift,
                    "batches": len(batches), "window_s": window,
                    "largest": {k: list(v) for k, v in engines[0].largest.items()},
                    "reference_s": 0.0, "control_s": 0.0, "gap_diff": []}
-            chosen = checking.pick(batches, int(traffic.get("check_batches", 1)), rng_check)
+            chosen = pick(batches, int(traffic.get("check_batches", 1)), rng_check)
             sound, control = [], []
             for i in chosen:
                 b = batches[i]
@@ -83,9 +83,9 @@ def main(argv=None) -> int:
                 ref_rho, ref_frames, cut_gap, pits = checking.reference_of(
                     b, config, db, args.device, rng=rng_check)
                 row["reference_s"] += time.perf_counter() - t
-                sound.append(checking.readings(b.rho, b.frames, ref_rho, ref_frames, cut_gap, pits))
+                sound.append(checking.readings(b.out, b.aux, ref_rho, ref_frames, cut_gap, pits))
                 row["gap_diff"] += [[float(f"{g:.3g}"), float(f"{x:.3g}")] for g, x in zip(
-                    cut_gap, np.max(np.abs(b.rho - ref_rho), axis=(1, 2)))]
+                    cut_gap, np.max(np.abs(b.out - ref_rho), axis=(1, 2)))]
                 if args.control:
                     t = time.perf_counter()
                     c_rho, c_frames, _, _ = checking.reference_of(

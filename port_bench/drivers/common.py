@@ -1,11 +1,26 @@
-"""What the drivers share: initial coefficients and the port's circuit."""
+"""What the GKP drivers share: the job, initial coefficients and the port's
+circuit."""
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 
 # logical (re, im) coefficients of |0> and |1> per named DV state
 _STATES = {"ZERO": ((1.0, 0.0), (0.0, 0.0)), "ONE": ((0.0, 0.0), (1.0, 0.0))}
+
+
+@dataclasses.dataclass
+class Job:
+    """One batch of trajectories of one circuit (``engines/gkp_batched``)."""
+
+    gates: list            # DV gates [(name, indices)]
+    N: int
+    coeffs: np.ndarray     # (N, 2, 2) float32 initial logical coefficients
+    batch: int
+    seed: int              # the batch's rng_seed
+    circuit: object        # the port's transpiled, filled MBGKPCircuit
 
 
 def initial_coeffs(names) -> np.ndarray:

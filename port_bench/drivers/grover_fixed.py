@@ -7,9 +7,8 @@ from __future__ import annotations
 
 import numpy as np
 
-from port_bench.drivers.common import initial_coeffs, port_circuit
+from port_bench.drivers.common import Job, initial_coeffs, port_circuit
 from port_bench.harness.circuits import grover
-from port_bench.harness.loop import Job
 
 
 def make_client(config: dict, traffic: dict, rng: np.random.Generator):

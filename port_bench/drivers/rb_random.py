@@ -13,9 +13,8 @@ from __future__ import annotations
 
 import numpy as np
 
-from port_bench.drivers.common import initial_coeffs, port_circuit
+from port_bench.drivers.common import Job, initial_coeffs, port_circuit
 from port_bench.harness.circuits import random_clifford
-from port_bench.harness.loop import Job
 
 _S2 = 2 ** -0.5
 _MATRICES = {

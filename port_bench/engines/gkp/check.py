@@ -99,16 +99,6 @@ def combine(per_batch: list[dict]) -> dict:
             "left_out_share": float(np.mean(~np.concatenate([r["keep"] for r in per_batch])))}
 
 
-def pick(batches, per_client: int, rng: np.random.Generator) -> list[int]:
-    """Indices of the window batches to check: ``per_client`` of each
-    client's, drawn from the check's generator."""
-    chosen = []
-    for client in sorted({b.client for b in batches}):
-        mine = [i for i, b in enumerate(batches) if b.client == client]
-        chosen += rng.choice(mine, size=min(per_client, len(mine)), replace=False).tolist()
-    return sorted(chosen)
-
-
 def check(batches, chosen, config: dict, db: float, limits: dict, device, log,
           rng: np.random.Generator | None = None) -> dict:
     """{name: {"value", "limit"}} over the chosen batches (NaN wins); a
@@ -121,7 +111,7 @@ def check(batches, chosen, config: dict, db: float, limits: dict, device, log,
         except (NotImplementedError, RuntimeError, StopIteration) as exc:
             log(f"check: the reference could not replay batch {i}: {exc!r}")
             return {name: {"value": None, "limit": limits[name]} for name in limits}
-        r = readings(b.rho, b.frames, ref_rho, ref_frames, cut_gap, pits)
+        r = readings(b.out, b.aux, ref_rho, ref_frames, cut_gap, pits)
         log(f"check: batch {i} (client {b.client}, seed {b.job.seed}, {b.job.batch} "
             f"trajectories): " + str({k: r[k] for k in ("rho_max_abs_diff", "frame_bits_differing",
                                                          "left_out", "left_out_diff")})
@@ -131,7 +121,3 @@ def check(batches, chosen, config: dict, db: float, limits: dict, device, log,
     log(f"check: {values['left_out_share']:.4f} of the checked trajectories left out")
     return {name: {"value": values[name], "limit": limits[name]} for name in limits}
 
-
-def passed(checks: dict) -> bool:
-    return all(c["value"] is not None and not np.isnan(c["value"]) and c["value"] <= c["limit"]
-               for c in checks.values())

@@ -1,10 +1,14 @@
 """One run of one cell: set-up, warm-up, the measured window, the check.
 
-Everything that belongs to one configuration, traffic mix, client kind or
-metric is found by name: the cell's entry in ``BENCHMARK.json`` names its
-configuration (whose file the configuration's entry gives) and its traffic
-(``port_bench/traffic/<traffic>.json``); the traffic names its driver
-(``port_bench/drivers/<driver>.py``); each metric is read by
+Everything that belongs to one configuration, engine, traffic mix, client
+kind or metric is found by name: the cell's entry in ``BENCHMARK.json``
+names its configuration (whose file the configuration's entry gives) and
+its traffic (``port_bench/traffic/<traffic>.json``); the configuration
+names its engine module (``port_bench/engines/<engine_module>.py``,
+``gkp_batched`` where it names none), which builds the clients' engines,
+runs a job, records the window for the check, and checks; the traffic
+names its driver (``port_bench/drivers/<driver>.py``), which makes the
+jobs and scores their outputs; each metric is read by
 ``port_bench/metrics/<metric>.py``, or where there is none by the reader of
 the name's stem before its first dot (``busy_share.rb`` by
 ``busy_share.py``); the check's limits of the cell are in
@@ -53,9 +57,9 @@ def load_module(bench_dir: Path, kind: str, name: str):
 
 
 class Cell:
-    """A workload of ``BENCHMARK.json`` with its configuration, traffic,
-    driver, limits and metrics, all found by name under the checkout
-    ``root``."""
+    """A workload of ``BENCHMARK.json`` with its configuration, engine,
+    traffic, driver, limits and metrics, all found by name under the
+    checkout ``root``."""
 
     def __init__(self, name: str, root: Path = ROOT):
         root = Path(root)
@@ -69,6 +73,8 @@ class Cell:
         self.chips = int(self.entry["chips"])
         config_entry = {c["name"]: c for c in bench["configs"]}[self.entry["config"]]
         self.config = load_json(root / config_entry["file"])
+        self.engine = load_module(self.bench_dir, "engines",
+                                  self.config.get("engine_module", DEFAULT_ENGINE))
         self.traffic = load_json(self.bench_dir / "traffic" / f"{self.entry['traffic']}.json")
         self.driver = load_module(self.bench_dir, "drivers", self.traffic["driver"])
         limits = self.bench_dir / "limits" / f"{name}.json"
@@ -97,6 +103,7 @@ class Run:
 
 
 WARM_SEED = 0x5EED
+DEFAULT_ENGINE = "gkp_batched"
 
 
 def seeds(seed: int) -> tuple[np.random.Generator, ...]:
@@ -111,34 +118,47 @@ def forbidden_modules() -> list[str]:
     return sorted({m.split(".")[0] for m in sys.modules} & set(FORBIDDEN_MODULES))
 
 
+def pick(batches, per_client: int, rng: np.random.Generator) -> list[int]:
+    """Indices of the window batches to check: ``per_client`` of each
+    client's, drawn from the check's generator."""
+    chosen = []
+    for client in sorted({b.client for b in batches}):
+        mine = [i for i, b in enumerate(batches) if b.client == client]
+        chosen += rng.choice(mine, size=min(per_client, len(mine)), replace=False).tolist()
+    return sorted(chosen)
+
+
+def passed(checks: dict) -> bool:
+    return all(c["value"] is not None and not np.isnan(c["value"]) and c["value"] <= c["limit"]
+               for c in checks.values())
+
+
 def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, *, device: str = "cuda",
              start: float | None = None, config_overrides: dict | None = None) -> dict:
     """One run; returns the result line's object (with ``checks`` last)."""
     import torch
 
-    from port_bench.harness import check as checking
-    from port_bench.harness.loop import make_engines, run_clients
-    from port_bench.harness.record import DrawRecorder
+    from port_bench.harness.loop import run_clients
 
     start = time.perf_counter() if start is None else start
     config = dict(cell.config, **(config_overrides or {}))
-    traffic = cell.traffic
+    traffic, engine = cell.traffic, cell.engine
     cuda = device == "cuda"
     sync = torch.cuda.synchronize if cuda else (lambda: None)
     rng_traffic, rng_warm, rng_check = seeds(seed)
     clients = int(traffic.get("clients", 1))
-    db = float(traffic["db"])
 
     t_engines = time.perf_counter()
-    engines = make_engines(config, db, device, clients)
+    engines = engine.make_engines(config, traffic, device, clients)
     t_warm = time.perf_counter()
     next_job, score = cell.driver.make_client(config, traffic, rng_traffic)
     warm_job, _ = cell.driver.make_client(config, traffic, rng_warm)
     run = Run()
-    with DrawRecorder() as recorder:
+    with engine.recorder() as recorder:
         # warm-up: one batch per client of the cell's own traffic, in turn,
         # from a generator the window does not use
-        run_clients(engines, warm_job, score, recorder, batches_per_client=1, serial=True)
+        run_clients(engines, warm_job, score, recorder, run_job=engine.run_job,
+                    batches_per_client=1, serial=True)
         sync()
         if cuda:
             torch.cuda.reset_peak_memory_stats()
@@ -149,7 +169,8 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, *, device: str 
         batches = []
         if trace:
             batches += _traced(cell, engines, next_job, score, recorder, run, cuda)
-        batches += run_clients(engines, next_job, score, recorder, deadline=t0 + seconds)
+        batches += run_clients(engines, next_job, score, recorder, run_job=engine.run_job,
+                               deadline=t0 + seconds)
         sync()
         t1 = max([b.end for b in batches] + [time.perf_counter()])
     run.window_s = t1 - t0
@@ -161,7 +182,7 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, *, device: str 
     log(f"window: {len(batches)} batches, {attempted} trajectories ({failed} failed) in "
         f"{run.window_s:.3f} s; set-up {run.setup_s:.3f} s; peak {run.peak_bytes} bytes; "
         f"mean score {np.mean(scores) if scores else float('nan'):.4f}")
-    log(f"engine counts {dict(engines[0].counts)}; largest (a, b) {engines[0].largest}")
+    log(engine.describe(engines))
 
     metrics = {}
     for m in (cell.per_layer if trace else cell.end_to_end):
@@ -176,11 +197,11 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, *, device: str 
         torch.cuda.empty_cache()
     limits = cell.limits or {}
     if batches and limits:
-        chosen = checking.pick(batches, int(traffic.get("check_batches", 1)), rng_check)
-        checks = checking.check(batches, chosen, config, db, limits, device, log, rng_check)
+        chosen = pick(batches, int(traffic.get("check_batches", 1)), rng_check)
+        checks = engine.check(batches, chosen, config, traffic, limits, device, log, rng_check)
     else:
         checks = {name: {"value": None, "limit": lim} for name, lim in limits.items()}
-    correct = bool(limits) and bool(batches) and checking.passed(checks)
+    correct = bool(limits) and bool(batches) and passed(checks)
 
     dev = {"platform": "gpu" if cuda else "cpu",
            "kind": torch.cuda.get_device_name(0) if cuda else "cpu",
@@ -212,7 +233,8 @@ def _traced(cell, engines, next_job, score, recorder, run, cuda):
     n = int(cell.traffic.get("trace_batches", 1))
     with torch.profiler.profile(activities=activities) as prof, counting as syncs:
         with torch.profiler.record_function("bench:window"):
-            batches = run_clients(engines, next_job, score, recorder, batches_per_client=n)
+            batches = run_clients(engines, next_job, score, recorder,
+                                  run_job=cell.engine.run_job, batches_per_client=n)
             if cuda:
                 torch.cuda.synchronize()
     run.syncs = syncs

@@ -1,16 +1,16 @@
 """The closed loop that the measured window drives.
 
-Each client is one ``BatchedGKP`` in its production configuration. A
-client takes the next job from the traffic (under one lock: the circuit's
-gates, the port's transpiled circuit, the batch seed), runs
-``run_circuit`` and ``readout``, copies the densities to the host, scores
-them, and takes the next job; it stops taking jobs at the deadline and
-finishes the batch it holds. One client runs in the calling thread; more
-run through the port's ``pipelines.common.run_engines``, one Python thread
-and one CUDA stream each, as the pipelines run them. The warm-up runs the
-clients' batches one after another (``serial``), each in its own thread,
-so that set-up does the same work in every run and leaves each thread's
-library handles made for the window's threads to take up.
+A client is one engine of the cell's engine module
+(``port_bench/engines/<engine_module>.py``). A client takes the next job
+from the traffic (under one lock), runs it through the engine module's
+``run_job``, which copies its outputs to the host, scores them, and takes
+the next job; it stops taking jobs at the deadline and finishes the job it
+holds. One client runs in the calling thread; more run through the port's
+``pipelines.common.run_engines``, one Python thread and one CUDA stream
+each, as the pipelines run them. The warm-up runs the clients' batches one
+after another (``serial``), each in its own thread, so that set-up does
+the same work in every run and leaves each thread's library handles made
+for the window's threads to take up.
 """
 
 from __future__ import annotations
@@ -20,60 +20,62 @@ import dataclasses
 import threading
 import time
 
-import numpy as np
-
-
-@dataclasses.dataclass
-class Job:
-    """One batch of trajectories of one circuit."""
-
-    gates: list            # DV gates [(name, indices)]
-    N: int
-    coeffs: np.ndarray     # (N, 2, 2) float32 initial logical coefficients
-    batch: int
-    seed: int              # the batch's rng_seed
-    circuit: object        # the port's transpiled, filled MBGKPCircuit
-
 
 @dataclasses.dataclass
 class Batch:
-    job: Job
+    job: object            # the driver's job; ``job.batch`` trajectories
     client: int            # index of the engine that ran it
-    rho: np.ndarray        # (B, 2^N, 2^N) complex, as read out to the host
-    frames: np.ndarray     # (B, N, 2)
-    tape: object           # record.BatchTape
+    out: object            # the engine's output on the host, which the driver scores
+    aux: object            # what else of it the check compares (GKP: Pauli frames)
+    tape: object           # the recorder's tape of the batch
     scores: list
-    failed: int            # trajectories with a non-finite or non-positive trace
+    failed: int            # trajectories the engine module counts as failed
     start: float
     end: float
 
 
+class NullRecorder:
+    """A recorder for engines whose check needs no record of the window."""
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+    def start(self):
+        return None
+
+    def stop(self):
+        pass
+
+
+def _default_engine():
+    import importlib
+
+    from port_bench.harness.bench import DEFAULT_ENGINE
+
+    return importlib.import_module(f"port_bench.engines.{DEFAULT_ENGINE}")
+
+
 def make_engines(config: dict, db: float, device, clients: int) -> list:
-    """One ``BatchedGKP`` per client at the configuration's grid, cap and
-    rel_err, in its production configuration."""
-    import torch
-
-    from quantum_computations_tpu_torch.gkp.batched import BatchedGKP
-    from port_bench.reference.engine import db2eps
-
-    span = float(config["grid_span"])
-    qs = np.linspace(-span, span, int(config["grid_points"]))
-    svd = {"rel_err": float(config["rel_err"]), "max_bond_dim": int(config["max_bond_dim"])}
-    engines = [BatchedGKP(qs, db2eps(db), svd, adaptive=True, granularity="op", device=device)
-               for _ in range(clients)]
-    if torch.device(device).type == "cuda":
-        # load CUDA's linear-algebra library from this thread: its lazy
-        # loader fails when engine threads make their first calls together
-        torch.linalg.eigh(torch.eye(2, dtype=torch.complex128, device=device))
-    return engines
+    """The default engine module's clients at squeezing ``db`` dB, for
+    callers that drive the loop without a cell (``tools/recording_cost.py``)."""
+    return _default_engine().make_engines(config, {"db": db}, device, clients)
 
 
-def run_clients(engines, next_job, score, recorder, *, deadline: float | None = None,
-                batches_per_client: int | None = None, serial: bool = False) -> list[Batch]:
-    """Drive every engine in closed loop until ``deadline`` (perf_counter
-    seconds) or for ``batches_per_client`` batches each; with ``serial``,
-    one batch at a time, every thread staying until all are done."""
+def run_clients(engines, next_job, score, recorder, *, run_job=None,
+                deadline: float | None = None, batches_per_client: int | None = None,
+                serial: bool = False) -> list[Batch]:
+    """Drive every engine in closed loop, ``run_job(engine, job)`` giving
+    (output, aux, failed), until ``deadline`` (perf_counter seconds) or for
+    ``batches_per_client`` batches each; with ``serial``, one batch at a
+    time, every thread staying until all are done. ``run_job`` is the
+    default engine module's where none is given."""
     from quantum_computations_tpu_torch.pipelines.common import run_engines
+
+    if run_job is None:
+        run_job = _default_engine().run_job
 
     lock = threading.Lock()
     turn = threading.Lock() if serial else contextlib.nullcontext()
@@ -104,19 +106,13 @@ def run_clients(engines, next_job, score, recorder, *, deadline: float | None = 
             n += 1
             start = time.perf_counter()
             tape = recorder.start()
-            tensors, frames = engine.run_circuit(job.circuit, job.coeffs, job.batch,
-                                                 rng_seed=job.seed)
-            re, im = (x.cpu().numpy() for x in engine.readout(tensors, frames))
+            out, aux, failed = run_job(engine, job)
             recorder.stop()
-            del tensors
-            rho = re + 1j * im
-            tr = np.trace(rho, axis1=1, axis2=2).real
-            failed = int(np.sum(~(np.isfinite(tr) & (tr > 0))))
-            scores = score(job, rho)
+            scores = score(job, out)
             end = time.perf_counter()
             with lock:
-                done.append(Batch(job, clients[id(engine)], rho, np.asarray(frames), tape, scores,
-                                  failed, start, end))
+                done.append(Batch(job, clients[id(engine)], out, aux, tape, scores, failed,
+                                  start, end))
 
     if len(engines) == 1:
         work(engines[0])

@@ -6,6 +6,7 @@ run without a card."""
 import json
 import os
 import shutil
+import statistics
 import subprocess
 import sys
 import time
@@ -20,7 +21,8 @@ sys.path.insert(0, str(ROOT))
 
 from port_bench.harness.bench import Cell, Run, load_module, run_cell  # noqa: E402
 from port_bench.harness.circuits import grover, random_clifford  # noqa: E402
-from port_bench.harness.loop import Job, run_clients  # noqa: E402
+from port_bench.drivers.common import Job  # noqa: E402
+from port_bench.harness.loop import run_clients  # noqa: E402
 from port_bench.harness.trace import breakdown, summarize  # noqa: E402
 
 TINY = {"grid_points": 96, "grid_span": 12.0, "max_bond_dim": 8}
@@ -168,6 +170,23 @@ def test_rate_is_taken_over_the_whole_window_with_its_stall():
     assert run.window_s > 0.3 and rate < run.trajectories / busy_without_stall / 2
 
 
+def test_the_loop_drives_the_default_engine_without_a_cell():
+    """``loop.make_engines(config, db, device, clients)`` and
+    ``run_clients`` without ``run_job`` take the default engine module, as
+    ``tools/recording_cost.py`` calls them."""
+    from port_bench.harness.bench import seeds
+    from port_bench.harness.loop import NullRecorder, make_engines
+
+    cell = Cell("rb_d8_10db")
+    config, traffic = dict(cell.config, **TINY), dict(cell.traffic, batch=2)
+    engines = make_engines(config, float(traffic["db"]), "cpu", 1)
+    assert type(engines[0]).__name__ == "BatchedGKP"
+    next_job, score = cell.driver.make_client(config, traffic, seeds(7)[0])
+    (batch,) = run_clients(engines, next_job, score, NullRecorder(), batches_per_client=1,
+                           serial=True)
+    assert batch.out.shape == (2, 4, 4) and batch.failed == 0 and len(batch.scores) == 2
+
+
 @pytest.mark.parametrize("seed", [0, 1, 123, 2**40 + 3])
 def test_circuit_draw_matches_the_port(seed):
     from quantum_computations_tpu_torch.pipelines.rb import random_circ
@@ -201,7 +220,7 @@ def test_a_run_without_a_card_exits_nonzero_and_prints_no_result():
 
 
 def test_the_cut_gap_rule_gives_way_when_it_would_leave_out_most():
-    from port_bench.harness.check import CUT_GAP_MIN, combine, readings
+    from port_bench.engines.gkp.check import CUT_GAP_MIN, combine, readings
     rho = np.zeros((4, 2, 2))
     ref = rho.copy()
     ref[:, 0, 0] = [1e-6, 2e-6, 3e-3, 4e-3]
@@ -212,3 +231,135 @@ def test_the_cut_gap_rule_gives_way_when_it_would_leave_out_most():
     assert combine([most])["rho_max_abs_diff"] == 4e-3
     assert combine([few, most])["left_out_share"] == 0.5
     assert combine([few, most])["rho_max_abs_diff"] == 3e-3
+
+
+_SV_ENGINE = '''"""A throwaway engine: FastStatevector on a random circuit per job."""
+import types
+
+import numpy as np
+
+
+def make_engines(config, traffic, device, clients):
+    import torch
+    return [types.SimpleNamespace(qubits=int(config["qubits"]), device=torch.device(device))
+            for _ in range(clients)]
+
+
+def run_job(engine, job):
+    from quantum_computations_tpu_torch.dv import FastStatevector, gates
+    sv = FastStatevector(engine.qubits, device=engine.device)
+    sv.run_compiled([getattr(gates, name)(*idx) for name, idx in job.gates])
+    p = sv.probs().cpu().numpy().astype(np.float64)
+    return p, None, int(not np.all(np.isfinite(p)))
+
+
+def recorder():
+    from port_bench.harness.loop import NullRecorder
+    return NullRecorder()
+
+
+_M = {"H": np.array([[1, 1], [1, -1]]) / np.sqrt(2), "X": np.array([[0, 1], [1, 0]]),
+      "CX": np.array([[1, 0, 0, 0], [0, 1, 0, 0], [0, 0, 0, 1], [0, 0, 1, 0]])}
+
+
+def _reference(gates, n):
+    psi = np.zeros([2] * n, complex)
+    psi[(0,) * n] = 1
+    for name, idx in gates:
+        u = _M[name].reshape([2] * (2 * len(idx)))
+        axes = list(range(len(idx), 2 * len(idx)))
+        psi = np.moveaxis(np.tensordot(u, psi, axes=(axes, list(idx))), range(len(idx)), idx)
+    return np.abs(psi.reshape(-1)) ** 2
+
+
+def check(batches, chosen, config, traffic, limits, device, log, rng):
+    worst = max(float(np.max(np.abs(batches[i].out - _reference(batches[i].job.gates,
+                                                                int(config["qubits"])))))
+                for i in chosen)
+    return {"probs_max_abs_diff": {"value": worst, "limit": limits["probs_max_abs_diff"]}}
+
+
+def describe(engines):
+    return f"{len(engines)} state vector(s) of {engines[0].qubits} qubits"
+'''
+
+_SV_DRIVER = '''"""Random H, X and adjacent CX circuits of the traffic's length, one a job."""
+import types
+
+import numpy as np
+
+
+def make_client(config, traffic, rng):
+    n, length = int(config["qubits"]), int(traffic["gates"])
+
+    def next_job():
+        gates = []
+        for _ in range(length):
+            kind = int(rng.integers(3))
+            q = int(rng.integers(n - 1))
+            gates.append(("CX", (q, q + 1)) if kind == 2 else ("HX"[kind], (q,)))
+        return types.SimpleNamespace(gates=gates, batch=1, seed=int(rng.integers(2**31)))
+
+    def score(job, probs):
+        return [float(np.max(probs))]
+
+    return next_job, score
+'''
+
+
+def test_a_state_vector_configuration_added_as_new_files_runs(tmp_path):
+    """A configuration that names an engine module of its own (a
+    FastStatevector of 4 qubits on the CPU), with its traffic, driver,
+    metric and limits, all added as new files beside a copy of the
+    benchmark, runs with ``correct`` true and no file of the copy edited."""
+    shutil.copytree(ROOT / "port_bench", tmp_path / "port_bench",
+                    ignore=shutil.ignore_patterns("out", ".cache", "__pycache__"))
+    before = {p: p.read_bytes() for p in (tmp_path / "port_bench").rglob("*") if p.is_file()}
+    bench = json.loads((ROOT / "BENCHMARK.json").read_text())
+    files = {
+        "engines/sv_tiny.py": _SV_ENGINE,
+        "drivers/sv_random.py": _SV_DRIVER,
+        "configs/sv4.json": json.dumps({"name": "sv4", "engine_module": "sv_tiny", "qubits": 4}),
+        "traffic/sv4_g12.json": json.dumps({"driver": "sv_random", "gates": 12,
+                                            "check_batches": 3}),
+        "metrics/circuits_per_s.py": "def read(run):\n    return run.trajectories / run.window_s\n",
+        "limits/sv4_g12.json": json.dumps({"probs_max_abs_diff": 1e-5}),
+    }
+    for name, text in files.items():
+        (tmp_path / "port_bench" / name).write_text(text)
+    bench["configs"].append({"name": "sv4", "source": "test", "reduced": [],
+                             "file": "port_bench/configs/sv4.json", "why": "test"})
+    bench["workloads"].append({"name": "sv4_g12", "config": "sv4", "traffic": "sv4_g12",
+                               "chips": 1, "why": "test"})
+    bench["end_to_end"].append({"name": "circuits_per_s", "unit": "circuits/s",
+                                "better": "higher", "bound": 0.01, "source": "host_clock",
+                                "workloads": ["sv4_g12"]})
+    (tmp_path / "BENCHMARK.json").write_text(json.dumps(bench))
+
+    cell = Cell("sv4_g12", root=tmp_path)
+    assert cell.engine.__file__ == str(tmp_path / "port_bench/engines/sv_tiny.py")
+    result = run_cell(cell, 2**35 + 9, 0.3, False, device="cpu")
+    assert result["correct"] is True
+    assert result["attempted"] > 3 and result["failed"] == 0
+    assert set(result["metrics"]) == {"circuits_per_s", "setup_s"}
+    assert result["checks"]["probs_max_abs_diff"]["value"] < 1e-5
+    after = {p: p.read_bytes() for p in (tmp_path / "port_bench").rglob("*")
+             if p.is_file() and p in before}
+    assert after == before
+
+
+def test_the_spread_tool_reckons_quartile_spreads():
+    """(Q3 - Q1) / median by statistics.quantiles(n=4), and the same
+    leaving out the run farthest from the median only where that narrows it."""
+    bench_spread = load_module(ROOT / "port_bench", "tools", "bench_spread")
+    runs = [1.0, 1.02, 0.98, 1.01, 0.99, 1.6]
+    q1, med, q3 = statistics.quantiles(runs, n=4)
+    assert bench_spread.spread(runs) == pytest.approx((q3 - q1) / med)
+    q1, med, q3 = statistics.quantiles(runs[:5], n=4)
+    assert bench_spread.trimmed_spread(runs) == pytest.approx((q3 - q1) / med)
+    steady = [1.0, 1.0, 1.0, 1.0, 1.0, 1.0]
+    assert bench_spread.trimmed_spread(steady) == 0.0
+    summary = bench_spread.summarize(
+        [{"set": s, "result": {"metrics": {"m": {"value": v}}}} for s in (1, 2) for v in runs])
+    assert summary["m"]["mean_trimmed"] == pytest.approx(bench_spread.trimmed_spread(runs))
+    assert summary["m"]["widest"] == pytest.approx(bench_spread.spread(runs))

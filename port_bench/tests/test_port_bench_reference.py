@@ -12,7 +12,7 @@ sys.path.insert(0, str(ROOT))
 
 from port_bench.drivers.common import initial_coeffs, port_circuit  # noqa: E402
 from port_bench.harness.circuits import grover, random_clifford  # noqa: E402
-from port_bench.harness.record import DrawRecorder  # noqa: E402
+from port_bench.engines.gkp.record import DrawRecorder  # noqa: E402
 from port_bench.reference.engine import Tape, db2eps, replay_batch, transpile  # noqa: E402
 
 
@@ -83,7 +83,7 @@ def test_transpile_matches_the_port():
 def test_the_draws_transform_to_uniform_under_the_reference():
     """The port's draws, judged under the reference's distributions, give
     uniform transforms; moved by a grid point they do not."""
-    from port_bench.harness.check import draw_ks
+    from port_bench.engines.gkp.check import draw_ks
     gates = random_clifford(2, 8, np.random.default_rng(6))
     *_, (indices, sketches) = port_and_reference(gates, 2, 128, 8, 24, 21)
     N, coeffs, qs = 2, initial_coeffs(["ZERO"] * 2), np.linspace(-12, 12, 128)
@@ -100,7 +100,7 @@ def test_the_draws_transform_to_uniform_under_the_reference():
 
 
 def test_ks_reads_a_uniform_sample_low_and_a_skewed_one_high():
-    from port_bench.harness.check import ks_sqrt_n
+    from port_bench.engines.gkp.check import ks_sqrt_n
     u = np.random.default_rng(1).random(4000)
     assert ks_sqrt_n(u) < 2.0 and ks_sqrt_n(u ** 1.3) > 5.0
     assert ks_sqrt_n(np.arange(1, 101) / 101) < 0.1
