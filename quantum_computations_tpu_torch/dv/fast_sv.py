@@ -28,6 +28,16 @@ Gate scheduling (``fusion_mode``):
 Each layout pass is one or more ``reshape -> permute -> contiguous``
 copies, run on one plane and then the other, each copy replacing the plane
 it read, so at most three planes are live at a time.
+
+Spans (:func:`..utils.profiling.span`): ``op:sv_plan`` (fusion, window
+scheduling and, in :meth:`FastStatevector.run_compiled`, the recorded plan
+with its window uploads), ``op:sv_layout`` (each layout pass),
+``op:sv_window`` (each ``slab_matmul`` launch) and ``op:sv_readout``
+(:meth:`~FastStatevector.amplitudes`, :meth:`~FastStatevector.sample`,
+:meth:`~FastStatevector.norm_sq`). Counters on the engine:
+``layout_passes``, ``plane_copies`` and ``layout_bytes`` (the copies that
+layout passes ran, and the bytes they read and wrote) and ``slab_windows``
+(``slab_matmul`` launches).
 """
 
 from __future__ import annotations
@@ -42,6 +52,7 @@ import torch
 from . import fusion
 from ..config import REAL_DTYPE, resolve_device
 from ..ops import gate_kernels, slab_kernels
+from ..utils.profiling import span
 
 __all__ = ["FastStatevector", "order_windows", "plan_slab_residency"]
 
@@ -441,6 +452,18 @@ class FastStatevector:
         # layout-aware window scheduling (order_windows); exact, default on
         self.plan_windows = os.environ.get("QCT_SV_PLAN", "1") != "0"
         self.layout_passes = 0  # move/swap/scatter passes executed so far
+        self.plane_copies = 0   # permute copies those passes ran, both planes
+        self.layout_bytes = 0   # bytes the copies read and wrote
+        self.slab_windows = 0   # slab_matmul launches
+
+    def reset(self) -> "FastStatevector":
+        """Back to |0...0> in the identity layout, in place: the planes the
+        engine holds are overwritten, none is allocated. Returns self."""
+        self.re.zero_()
+        self.re[0] = 1.0
+        self.im.zero_()
+        self.axis_of = list(range(self.N))
+        return self
 
     # -- carrying state across ---------------------------------------------
     def load_numpy(self, re: np.ndarray, im: np.ndarray, axis_of) -> \
@@ -550,7 +573,9 @@ class FastStatevector:
             return self._run_chain(gates)
         if self.fusion_mode == "window":
             self._require_identity_layout()
-        for u, tgts in self._windows(gates):
+        with span("op:sv_plan"):
+            windows = self._windows(gates)
+        for u, tgts in windows:
             if self.fusion_mode == "slab":
                 self._apply_slab_window(u, tgts)
             else:
@@ -588,12 +613,16 @@ class FastStatevector:
         reference first, so each copy frees the plane it read: at most
         three planes are live."""
         copies = _layout_copies(op, self.N, self.slab_bits)
-        for name in ("re", "im"):
-            x = getattr(self, name)
-            setattr(self, name, None)
-            for shape, perm in copies:
-                x = _permute_copy(x, shape, perm)  # the old x is freed here
-            setattr(self, name, x)
+        with span("op:sv_layout"):
+            for name in ("re", "im"):
+                x = getattr(self, name)
+                setattr(self, name, None)
+                for shape, perm in copies:
+                    x = _permute_copy(x, shape, perm)  # the old x is freed here
+                setattr(self, name, x)
+        n = 2 * len(copies)  # both planes
+        self.plane_copies += n
+        self.layout_bytes += n * 2 * self.re.numel() * self.re.element_size()  # read + write
 
     def _ensure_slab_resident(self, tgts: tuple[int, ...]):
         """Bring all target axes into the minor slab (lazy layout).
@@ -630,8 +659,14 @@ class FastStatevector:
         ``(R, 2^S) @ (2^S, 2^S)`` split-real product."""
         self._ensure_slab_resident(tgts)
         wt_re, wt_im = self._slab_window(u, tgts)
-        self.re, self.im = slab_kernels.slab_matmul(self.re, self.im,
-                                                    wt_re, wt_im)
+        self._launch_window(wt_re, wt_im)
+
+    def _launch_window(self, wt_re: torch.Tensor, wt_im: torch.Tensor):
+        """One ``slab_matmul`` of a slab window already on the device."""
+        with span("op:sv_window"):
+            self.re, self.im = slab_kernels.slab_matmul(self.re, self.im,
+                                                        wt_re, wt_im)
+        self.slab_windows += 1
 
     def run_compiled(self, gates) -> "FastStatevector":
         """Slab-mode execution of a whole gate list from one recorded plan.
@@ -644,25 +679,25 @@ class FastStatevector:
         """
         if self.fusion_mode != "slab":
             raise ValueError("run_compiled requires fusion_mode='slab'")
-        windows = self._windows(gates)
         plan: list[tuple] = []
         saved_layout = list(self.axis_of)
         saved_passes = self.layout_passes
-        self._plan_only = plan.append
-        try:
-            for u, tgts in windows:
-                self._ensure_slab_resident(tgts)
-                plan.append(("matmul",) + self._slab_window(u, tgts))
-        except BaseException:
-            self.axis_of = saved_layout
-            self.layout_passes = saved_passes
-            raise
-        finally:
-            self._plan_only = None
+        with span("op:sv_plan"):
+            windows = self._windows(gates)
+            self._plan_only = plan.append
+            try:
+                for u, tgts in windows:
+                    self._ensure_slab_resident(tgts)
+                    plan.append(("matmul",) + self._slab_window(u, tgts))
+            except BaseException:
+                self.axis_of = saved_layout
+                self.layout_passes = saved_passes
+                raise
+            finally:
+                self._plan_only = None
         for op in plan:
             if op[0] == "matmul":
-                self.re, self.im = slab_kernels.slab_matmul(
-                    self.re, self.im, op[1], op[2])
+                self._launch_window(op[1], op[2])
             else:
                 self._run_pass(op)
         return self
@@ -682,7 +717,27 @@ class FastStatevector:
         return self.re * self.re + self.im * self.im
 
     def norm_sq(self) -> float:
-        return float(torch.sum(self.re * self.re) + torch.sum(self.im * self.im))
+        with span("op:sv_readout"):
+            return float(torch.sum(self.re * self.re) + torch.sum(self.im * self.im))
+
+    def amplitudes(self, logical_indices) -> np.ndarray:
+        """Amplitudes of the LOGICAL basis states ``logical_indices`` (int64,
+        big-endian: qubit l is bit N - 1 - l) as complex64 on the host — any
+        N, any slab layout, without the rank-N transpose: each index is
+        mapped to its physical index through ``axis_of`` and ``re``/``im``
+        are gathered at those on the device."""
+        idx = np.asarray(logical_indices, dtype=np.int64).reshape(-1)
+        if idx.size and (idx.min() < 0 or idx.max() >= 1 << self.N):
+            raise ValueError(f"basis indices must lie in [0, 2**{self.N})")
+        with span("op:sv_readout"):
+            phys = torch.from_numpy(idx).to(self.device)
+            if not self._layout_is_identity():
+                N = self.N
+                logical = torch.arange(N - 1, -1, -1, device=self.device)
+                physical = N - 1 - torch.tensor(self.axis_of, device=self.device)
+                bits = (phys[:, None] >> logical) & 1
+                phys = torch.sum(bits << physical, dim=1)
+            return torch.complex(self.re[phys], self.im[phys]).cpu().numpy()
 
     def probs(self) -> torch.Tensor:
         """|amp|^2 vector in LOGICAL qubit order — any layout.
@@ -766,12 +821,13 @@ class FastStatevector:
         """
         C = 1 << self.c_bits
         R = (1 << self.N) // C
-        p = self._p().reshape(R, C)
-        rows = torch.sum(p, dim=1)
-        r = torch.multinomial(rows, shots, replacement=True,
-                              generator=generator)
-        c = torch.multinomial(p[r], 1, generator=generator).squeeze(1)
-        samples = (r * C + c).cpu().numpy()
+        with span("op:sv_readout"):
+            p = self._p().reshape(R, C)
+            rows = torch.sum(p, dim=1)
+            r = torch.multinomial(rows, shots, replacement=True,
+                                  generator=generator)
+            c = torch.multinomial(p[r], 1, generator=generator).squeeze(1)
+            samples = (r * C + c).cpu().numpy()
         if self._layout_is_identity():
             return samples
         # slab layout: sampled indices are in PHYSICAL axis order — remap
