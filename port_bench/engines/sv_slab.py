@@ -73,8 +73,8 @@ def run_job(engine, job):
     norm = engine.norm_sq()
     if traced:
         after = _counts(engine)
-        slab_work.note(dict({k: after[k] - before[k] for k in after},
-                            N=engine.N, d=1 << engine.slab_bits))
+        slab_work.note({"N": engine.N, "d": 1 << engine.slab_bits,
+                        **{k: after[k] - before[k] for k in ("plane_copies", "layout_bytes")}})
     failed = int(not np.all(np.isfinite(amps)) or not abs(norm - 1.0) <= NORM_TOL)
     return amps, (samples, norm), failed
 

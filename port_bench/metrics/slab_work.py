@@ -8,11 +8,12 @@ metrics read (no metric of its own).
   real products) at its dense TF32 peak of 495 TFLOP/s (NVIDIA's data
   sheet, SXM part, 700 W); the bound is the larger. No window in place at
   FP32 accuracy beats it: 3xTF32 does three times the operations.
-- The engine's counters over the traced circuits: ``engines/sv_slab``
+- The engine's layout counters over the traced circuits: ``engines/sv_slab``
   notes what its engine counted in each job it ran under the profiler
   (:func:`note`), and a reader sums the notes (:func:`traced_sum`). The
   notes live here because a reader sees only the run; ``make_engines``
-  clears them at the start of each run.
+  clears them at the start of each run. The windows are counted by the
+  trace itself: one ``op:sv_window`` span a launch.
 """
 
 from __future__ import annotations
@@ -44,7 +45,7 @@ def clear() -> None:
 
 def note(counts: dict) -> None:
     """Keep one traced job's counts: ``N``, ``d`` (the window's width),
-    ``slab_windows``, ``plane_copies``, ``layout_bytes``."""
+    ``plane_copies``, ``layout_bytes``."""
     _notes.append(dict(counts))
 
 

@@ -33,7 +33,7 @@ def small_run(seed=2**35 + 77, seconds=0.5):
 def test_the_cell_runs_correct_at_ten_qubits():
     result = small_run()
     assert result["correct"] is True
-    assert result["attempted"] > 1 and result["failed"] == 0
+    assert result["attempted"] >= 1 and result["failed"] == 0  # a loaded host may fit one
     assert set(result["metrics"]) == {"qv30_circuits_per_s", "setup_s"}
     limits = json.loads((ROOT / "port_bench/limits/qv30_d30.json").read_text())
     for name, c in result["checks"].items():
@@ -98,6 +98,27 @@ def test_the_precision_control_fails_the_amplitude_limit():
     assert err > cell.limits["amp_rel_err"]
 
 
+@pytest.mark.parametrize("rounding", ["nearest", "truncate"])
+def test_one_tf32_product_a_window_fails_the_amplitude_limit(rounding):
+    """The timed path with every slab window a 1xTF32 product (the
+    configuration's FP32-accurate windows one precision lower) exceeds
+    ``amp_rel_err``'s limit at 10 qubits already, rounded to nearest or
+    truncated, while the same circuit in FP32 windows passes."""
+    from port_bench.tools.qv_controls import tf32_windows
+
+    cell = Cell("qv30_d30")
+    config = dict(cell.config, **SMALL)
+    job = cell.driver.make_client(config, cell.traffic, np.random.default_rng(4))[0]()
+    psi = bench_ref.simulate(job.gates, job.N)
+    (sv,) = cell.engine.make_engines(config, cell.traffic, "cpu", 1)
+    sound = cell.engine.run_job(sv, job)[0]
+    with tf32_windows(rounding):
+        control = cell.engine.run_job(sv, job)[0]
+    limit = cell.limits["amp_rel_err"]
+    assert cell.engine.readings(job, sound, np.zeros(4, np.int64), psi)[0] < limit
+    assert cell.engine.readings(job, control, np.zeros(4, np.int64), psi)[0] > limit
+
+
 def test_window_bounds_at_thirty_qubits():
     """N = 30, d = 128: 16 GiB over 3.35 TB/s is 5.13 ms; 2^40 operations
     over 495 TFLOP/s 2.22 ms; the bound is the first."""
@@ -114,9 +135,9 @@ def traced_run(monkeypatch):
     plane copies (8 GiB read and written each); 2 s of window device time,
     6 s of layout device time, 0.4 s host in the planner."""
     monkeypatch.setattr(slab_work, "_notes", [])
-    for windows, copies in ((146, 1500), (150, 1400)):
-        slab_work.note({"N": 30, "d": 128, "slab_windows": windows, "plane_copies": copies,
-                        "layout_bytes": copies * 8 * 2**30, "layout_passes": copies // 4})
+    for copies in (1500, 1400):
+        slab_work.note({"N": 30, "d": 128, "plane_copies": copies,
+                        "layout_bytes": copies * 8 * 2**30})
     run = Run()
     run.traced_trajectories = 2
     run.trace = {"per_class": {"sv_window": {"calls": 296, "host_ms": 5.0, "device_ms": 2000.0},
@@ -158,7 +179,8 @@ def test_the_engine_notes_only_the_jobs_run_under_the_profiler():
         cell.engine.run_job(sv, next_job())
     (note,) = slab_work._notes
     assert note["N"] == 10 and note["d"] == 128
-    assert note["slab_windows"] > 0 and note["layout_bytes"] == note["plane_copies"] * 8 * 2**10
+    assert set(note) == {"N", "d", "plane_copies", "layout_bytes"}
+    assert note["plane_copies"] > 0 and note["layout_bytes"] == note["plane_copies"] * 8 * 2**10
 
 
 @pytest.mark.parametrize("seed", [0, 42, 2**40 + 3])

@@ -71,6 +71,19 @@ def _permute_copy(x: torch.Tensor, shape: tuple, perm: tuple) -> torch.Tensor:
     return x.reshape(shape).permute(perm).contiguous().reshape(-1)
 
 
+def _remap_basis(x, axis_of, to_physical: bool):
+    """Basis indices ``x`` (a numpy array or a tensor of integers) moved
+    between the LOGICAL order (qubit l is bit N - 1 - l) and the physical
+    order of the layout ``axis_of`` (qubit l is bit N - 1 - axis_of[l]),
+    bit by bit, on the device or host where ``x`` lives."""
+    N = len(axis_of)
+    out = x & 0
+    for l, p in enumerate(axis_of):
+        src, dst = (N - 1 - l, N - 1 - p) if to_physical else (N - 1 - p, N - 1 - l)
+        out |= ((x >> src) & 1) << dst
+    return out
+
+
 def _block_swap_plan(num_qubits: int, slab_bits: int):
     """Swap the slab (last S axes) with block B (the S axes above it)."""
     S = slab_bits
@@ -732,11 +745,7 @@ class FastStatevector:
         with span("op:sv_readout"):
             phys = torch.from_numpy(idx).to(self.device)
             if not self._layout_is_identity():
-                N = self.N
-                logical = torch.arange(N - 1, -1, -1, device=self.device)
-                physical = N - 1 - torch.tensor(self.axis_of, device=self.device)
-                bits = (phys[:, None] >> logical) & 1
-                phys = torch.sum(bits << physical, dim=1)
+                phys = _remap_basis(phys, self.axis_of, to_physical=True)
             return torch.complex(self.re[phys], self.im[phys]).cpu().numpy()
 
     def probs(self) -> torch.Tensor:
@@ -832,9 +841,4 @@ class FastStatevector:
             return samples
         # slab layout: sampled indices are in PHYSICAL axis order — remap
         # each bit to its logical position (host-side, (shots,) ints)
-        N = self.N
-        out = np.zeros_like(samples)
-        for l, p_ax in enumerate(self.axis_of):
-            bit = (samples >> (N - 1 - p_ax)) & 1
-            out |= bit << (N - 1 - l)
-        return out
+        return _remap_basis(samples, self.axis_of, to_physical=False)
