@@ -34,7 +34,7 @@ def test_the_cell_runs_correct_at_ten_qubits():
     result = small_run()
     assert result["correct"] is True
     assert result["attempted"] >= 1 and result["failed"] == 0  # a loaded host may fit one
-    assert set(result["metrics"]) == {"qv30_circuits_per_s", "setup_s"}
+    assert set(result["metrics"]) == {"rb_traj_per_s", "setup_s"}
     limits = json.loads((ROOT / "port_bench/limits/qv30_d30.json").read_text())
     for name, c in result["checks"].items():
         assert c["limit"] == limits[name] and c["value"] <= c["limit"]
